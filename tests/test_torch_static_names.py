@@ -1,0 +1,22 @@
+"""Undefined-global guard for the PyTorch port, chip_smoke.py and the port's
+profiling script, with the checker of tests/test_static_names.py (one case
+per file)."""
+
+import pytest
+
+from test_static_names import REPO, _undefined_in
+
+FILES = sorted(
+    p for p in (REPO / "light_loam_tpu_torch").rglob("*.py")
+    if "__pycache__" not in p.parts
+) + [REPO / "chip_smoke.py", REPO / "scripts" / "profile_torch.py"]
+
+
+def test_port_files_found():
+    assert len(FILES) > 20
+
+
+@pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
+def test_no_undefined_globals(path):
+    findings = _undefined_in(path)
+    assert not findings, "\n".join(findings)
