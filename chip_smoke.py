@@ -10,20 +10,29 @@ exception and a non-zero exit):
   2. build: nvcc both kernels (seconds, ptxas resource lines);
   3. knn5 vs its plain PyTorch version at the mapping stage's shapes;
   4. compat_votes vs its plain PyTorch version at the odometry and mapping
-     vote shapes;
+     vote shapes (R = 10, K = 163 and 829), timed per call and per launch
+     on the device;
   5. the flagship pipeline (HDL64_KITTI, full widths) over 12 synthetic
      frames on the card: kernel launch counts, finite poses, every mapped
      position within 5 cm of the JAX package's, per-stage device ms and
-     frames/s.
+     frames/s;
+  6. the same with the mapping-stage vote on (``vote_mode="simple"``,
+     ``vote_start_frame=2``) over 10 frames: compat_votes also runs at
+     K = 829, twice per mapped frame; the same checks against the JAX
+     package's positions on that run.
 
-The second-to-last line is a JSON object with each kernel's numbers; the
-last line is ``{"ok": true, "device": {...}}``.  Without a CUDA device, or
-without the ``light_loam_tpu_torch`` package beside it, the script fails
-before printing any result.  It imports nothing of JAX.
+The last three lines are a JSON object with each kernel's numbers, the
+card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Without a CUDA device, or without the ``light_loam_tpu_torch`` package
+beside it, the script fails before printing any result.  It imports
+nothing of JAX.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
+import dataclasses
+import functools
 import json
 import statistics
 import subprocess
@@ -65,6 +74,27 @@ JAX_MAPPED_POSITIONS = np.array([
     [11.004767417907715, 0.23331907391548157, 0.0038526335265487432],
 ])
 N_FRAMES = 12
+# Phase 6: the JAX package's mapped positions (m) with the mapping vote on,
+# on the CPU, produced by:
+#   JAX_PLATFORMS=cpu python -c "import dataclasses as d; from
+#   light_loam_tpu.models import pipeline as pl; c = pl.PROFILES['hdl64'];
+#   pl.PROFILES['hdl64'] = d.replace(c, mapping=d.replace(c.mapping,
+#   vote_mode='simple', vote_start_frame=2)); p, _, _ = pl.run_synthetic(
+#   n_frames=10, profile='hdl64', n_azimuth=1800, speed=1.0, seed=0);
+#   print(p.mapped_positions().tolist())"
+JAX_VOTE_MAPPED_POSITIONS = np.array([
+    [0.0, 0.0, 0.0],
+    [0.9995206594467163, 0.02170042134821415, 0.0015200147172436118],
+    [2.0035605430603027, 0.04235256090760231, 0.0016427640803158283],
+    [3.0106072425842285, 0.06923092901706696, 0.002433948451653123],
+    [4.015247821807861, 0.09037447720766068, 0.0016639987006783485],
+    [5.00358772277832, 0.11249828338623047, 0.0023228591307997704],
+    [6.01154899597168, 0.12681980431079865, 0.0015704475808888674],
+    [7.019372940063477, 0.1454065442085266, 0.002226310782134533],
+    [8.00472354888916, 0.16253094375133514, 0.0024295002222061157],
+    [9.003265380859375, 0.18747785687446594, 0.004220140632241964],
+])
+VOTE_N_FRAMES = 10
 POSITION_TOL_M = 0.05
 # knn5 distances: the Gram form |q|^2 + |r|^2 - 2 q.r rounds at the scale of
 # |q|^2 + |r|^2 (~2e4 m^2 at 100 m, where a float32 ulp is ~1e-3 m^2), not of
@@ -91,6 +121,32 @@ def _median_ms(fn, reps: int) -> float:
     return statistics.median(times)
 
 
+def _device_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn``: ``reps`` calls enqueued behind a spin
+    kernel, so that they run back to back and the host's own time per call
+    (Python, ctypes, allocation) is not in the figure.  The spin is doubled
+    until it outlasts the enqueueing.  ``reps`` times the launches per call
+    must stay well below the few hundred launches the card queues, or the
+    host blocks behind the spin (the plain votes launch about a dozen)."""
+    fn()
+    torch.cuda.synchronize()
+    cycles = 1 << 24
+    for _ in range(8):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(cycles)
+        start.record()
+        for _ in range(reps):
+            fn()
+        covered = not start.query()
+        end.record()
+        end.synchronize()
+        if covered:
+            return start.elapsed_time(end) / reps
+        cycles *= 2
+    raise RuntimeError("device timing: the host never got ahead of the card")
+
+
 def phase_device() -> str:
     if not torch.cuda.is_available():
         raise SystemExit("chip_smoke: torch.cuda.is_available() is False")
@@ -105,8 +161,9 @@ def phase_device() -> str:
 
 
 def phase_build(kernels) -> None:
-    for k in kernels:
-        k.build()
+    # one nvcc per source, all at once
+    with concurrent.futures.ThreadPoolExecutor(len(kernels)) as pool:
+        list(pool.map(lambda k: k.build(), kernels))
     parts = []
     for k in kernels:
         secs = "cached" if k.build_seconds is None else f"{k.build_seconds:.2f}s"
@@ -225,22 +282,36 @@ def phase_vote(dev) -> dict:
             raise AssertionError(
                 f"compat_votes K={K}: max diff {diff.max().item()}, "
                 f"differing fraction {frac}")
+        kernel = functools.partial(compat_votes, src_t, tgt_t, val_t)
+        plain = functools.partial(compat_votes_plain, src_t, tgt_t, val_t)
         out[K] = dict(
             err=diff.max().item(), frac=frac,
-            ms=_median_ms(lambda: compat_votes(src_t, tgt_t, val_t), 50),
-            plain_ms=_median_ms(
-                lambda: compat_votes_plain(src_t, tgt_t, val_t), 20),
+            ms=_median_ms(kernel, 50), plain_ms=_median_ms(plain, 20),
+            device_ms=_device_ms(kernel, 100),
+            plain_device_ms=_device_ms(plain, 20),
         )
     print("[4 vote] " + " | ".join(
         f"R=10 K={K} max_abs_err={v['err']:.3g} differing={v['frac']:.4f} "
-        f"kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms"
+        f"kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms per call, "
+        f"kernel {v['device_ms']:.4f} ms plain {v['plain_device_ms']:.4f} ms "
+        "per launch on the device"
         for K, v in out.items()))
     return out
 
 
-def phase_pipeline(dev, kernels) -> dict:
-    cfg = PROFILES["hdl64"]
-    frames = list(synthetic_frames(N_FRAMES, cfg, n_azimuth=1800, speed=1.0,
+def mapping_vote_config():
+    """The flagship profile with the mapping-stage vote on from the third
+    mapped frame (the profile itself keeps it off, as the reference does)."""
+    base = PROFILES["hdl64"]
+    return dataclasses.replace(base, mapping=dataclasses.replace(
+        base.mapping, vote_mode="simple", vote_start_frame=2))
+
+
+def phase_pipeline(tag, cfg, n_frames, jax_positions, kernels) -> dict:
+    """Drive ``n_frames`` flagship frames under ``cfg`` and hold them to
+    ``jax_positions``; returns the launch counts of this run and the mean
+    stream ms per stage."""
+    frames = list(synthetic_frames(n_frames, cfg, n_azimuth=1800, speed=1.0,
                                    seed=0))
     pipe = Pipeline(cfg, device="cuda")
     for k in kernels:
@@ -263,36 +334,43 @@ def phase_pipeline(dev, kernels) -> dict:
 
     n_mapped = sum(r.mapped for r in results)
     # one vote per odometry outer iteration (6 per frame); a corner and a
-    # surf 5-NN per mapping outer iteration (4 per mapped frame)
+    # surf 5-NN per mapping outer iteration (4 per mapped frame); with the
+    # mapping vote on, one more vote per mapping outer iteration (2 per
+    # mapped frame, launched before vote_start_frame too)
     votes_per_frame = cfg.odometry.outer_iterations
+    votes_per_mapped = (cfg.mapping.outer_iterations
+                        if cfg.mapping.vote_mode != "off" else 0)
     knn_per_mapped = 2 * cfg.mapping.outer_iterations
-    if launches["vote.cu"] != votes_per_frame * N_FRAMES:
-        raise AssertionError(f"vote launches {launches['vote.cu']} != "
-                             f"{votes_per_frame} x {N_FRAMES} frames")
+    want_votes = votes_per_frame * n_frames + votes_per_mapped * n_mapped
+    if launches["vote.cu"] != want_votes:
+        raise AssertionError(
+            f"vote launches {launches['vote.cu']} != {votes_per_frame} x "
+            f"{n_frames} frames + {votes_per_mapped} x {n_mapped} mapped")
     if launches["knn.cu"] != knn_per_mapped * n_mapped:
         raise AssertionError(f"knn launches {launches['knn.cu']} != "
                              f"{knn_per_mapped} x {n_mapped} mapped frames")
     for r in results:
         if not (np.isfinite(r.odom_q).all() and np.isfinite(r.odom_t).all()):
             raise AssertionError(f"frame {r.frame}: non-finite odometry pose")
-    if positions.shape != JAX_MAPPED_POSITIONS.shape or not np.isfinite(
+    if positions.shape != jax_positions.shape or not np.isfinite(
             positions).all():
         raise AssertionError(f"mapped positions {positions.shape} not "
-                             f"finite {JAX_MAPPED_POSITIONS.shape}")
-    dev_m = np.linalg.norm(positions - JAX_MAPPED_POSITIONS, axis=1)
+                             f"finite {jax_positions.shape}")
+    dev_m = np.linalg.norm(positions - jax_positions, axis=1)
     if (dev_m > POSITION_TOL_M).any():
         raise AssertionError(
             f"mapped positions deviate from the JAX package's by up to "
             f"{dev_m.max():.4f} m (> {POSITION_TOL_M} m): {dev_m.tolist()}")
-    stages = pipe.timers.device_report()
-    fps = (N_FRAMES - 1) / (t_end - t1)
-    print(f"[5 pipeline] hdl64 {N_FRAMES} frames, {n_mapped} mapped | "
-          f"launches {launches} | max |mapped - jax| {dev_m.max():.4f} m | "
-          + " ".join(f"{n} {s.mean_ms:.2f}ms" for n, s in sorted(stages.items()))
-          + f" (device, mean of frames 2-{N_FRAMES}) | {fps:.2f} frames/s "
-          f"(host wall, frames 2-{N_FRAMES}; first frame "
+    stages = {n: s.mean_ms for n, s in pipe.timers.device_report().items()}
+    fps = (n_frames - 1) / (t_end - t1)
+    print(f"[{tag}] hdl64 {n_frames} frames, {n_mapped} mapped, mapping "
+          f"vote {cfg.mapping.vote_mode} | launches {launches} | max "
+          f"|mapped - jax| {dev_m.max():.4f} m | "
+          + " ".join(f"{n} {ms:.2f}ms" for n, ms in sorted(stages.items()))
+          + f" (stream, mean of frames 2-{n_frames}) | {fps:.2f} frames/s "
+          f"(host wall, frames 2-{n_frames}; first frame "
           f"{(t1 - t0) * 1e3:.0f} ms)")
-    return launches
+    return dict(launches=launches, stages=stages)
 
 
 def main() -> int:
@@ -302,7 +380,15 @@ def main() -> int:
     phase_build(kernels)
     knn = phase_knn(dev)
     vote = phase_vote(dev)
-    launches = phase_pipeline(dev, kernels)
+    p5 = phase_pipeline("5 pipeline", PROFILES["hdl64"], N_FRAMES,
+                        JAX_MAPPED_POSITIONS, kernels)
+    p6 = phase_pipeline("6 mapping vote", mapping_vote_config(),
+                        VOTE_N_FRAMES, JAX_VOTE_MAPPED_POSITIONS, kernels)
+    print(f"[6 mapping vote] mapping stage {p6['stages']['mapping']:.2f} ms "
+          f"per frame with the vote, {p5['stages']['mapping']:.2f} ms without "
+          "(phase 5)")
+    launches = {name: p5["launches"][name] + p6["launches"][name]
+                for name in p5["launches"]}
 
     surf = knn[("surf", "below")]
     knn_err = max(v["err"] for v in knn.values())
@@ -317,7 +403,12 @@ def main() -> int:
          "replaces": "light_loam_tpu/ops/pallas_vote.py:33",
          "launches": launches["vote.cu"],
          "max_abs_err": max(v["err"] for v in vote.values()),
-         "ms": vote[163]["ms"], "plain_ms": vote[163]["plain_ms"]},
+         "ms": vote[163]["ms"], "plain_ms": vote[163]["plain_ms"],
+         "shapes": [
+             {"R": 10, "K": K, "max_abs_err": v["err"], "ms": v["ms"],
+              "plain_ms": v["plain_ms"], "device_ms": v["device_ms"],
+              "plain_device_ms": v["plain_device_ms"]}
+             for K, v in vote.items()]},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -8,23 +8,76 @@ vote counts the j ≠ i with score < threshold and both ends valid.
 
 ``compat_votes`` launches ``csrc/vote.cu`` for CUDA tensors and runs
 ``compat_votes_plain`` for CPU tensors; it never falls back from one to
-the other.
+the other.  The kernel's launch geometry (``vote_geometry``) and the band
+of exp arguments it decides without calling ``expf`` (``exp_band``) are
+computed here, on the host.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+import math
+from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from light_loam_tpu_torch.ops.cuda_build import CudaKernel
 
 VOTE = CudaKernel(
     "vote.cu", "compat_votes_launch",
-    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int, ctypes.c_float,
-                             ctypes.c_float, ctypes.c_void_p, ctypes.c_int,
-                             ctypes.c_void_p],
+    [ctypes.c_void_p] * 3 + [ctypes.c_int, ctypes.c_int]
+    + [ctypes.c_float] * 4 + [ctypes.c_int] * 4
+    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
 )
+
+WARPS_PER_BLOCK = 8            # vote.cu WARPS
+BYTES_PER_POINT = 36           # x, y, z, |x|² of src and tgt, validity
+# j points staged at once: 36 KB, under the 48 KB a launch takes without
+# opting in; larger tiles lower occupancy (vote.cu)
+MAX_TILE = 1024
+H100_SMS = 132
+EXP_BAND = 1e-5                # half-width of the band around ln(threshold)
+
+
+class VoteGeometry(NamedTuple):
+    """Launch geometry of vote.cu: ``rows_per_warp`` rows per warp, 8 warps
+    per block, ``row_blocks`` blocks per chunk, the j side staged
+    ``tile`` points at a time."""
+    rows_per_warp: int
+    row_blocks: int
+    tile: int
+
+    @property
+    def smem_bytes(self) -> int:
+        return BYTES_PER_POINT * self.tile
+
+
+@functools.lru_cache(maxsize=64)
+def vote_geometry(R: int, K: int, n_sm: int = H100_SMS) -> VoteGeometry:
+    """Two rows per warp where that still launches a block for every SM,
+    else one (on the H100, 2 beat 1 and 4 at K = 829 and 7000; at K = 163
+    two would leave SMs idle)."""
+    for rpw in (2, 1):
+        row_blocks = -(-K // (WARPS_PER_BLOCK * rpw))
+        if R * row_blocks >= n_sm:
+            break
+    return VoteGeometry(rpw, row_blocks, min(K, MAX_TILE))
+
+
+@functools.lru_cache(maxsize=16)
+def exp_band(threshold: float) -> tuple:
+    """[a_lo, a_hi] around ln(threshold), rounded outwards to float32,
+    outside which ``expf(a) < threshold`` is decided by ``a < a_lo`` (see
+    vote.cu for the proof); the whole line where that does not hold."""
+    t = float(np.float32(threshold))
+    if not (math.isfinite(t) and t > 0.0 and math.log(t) >= -80.0):
+        return -math.inf, math.inf
+    c = math.log(t)
+    lo = np.nextafter(np.float32(c - EXP_BAND), np.float32(-np.inf))
+    hi = np.nextafter(np.float32(c + EXP_BAND), np.float32(np.inf))
+    return float(lo), float(hi)
 
 
 def compat_scores(src: torch.Tensor, tgt: torch.Tensor,
@@ -82,10 +135,18 @@ def compat_votes(src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor,
     _check("src", src, (R, K, 3), dev)
     _check("tgt", tgt, (R, K, 3), dev)
     _check("valid", valid, (R, K), dev)
+    geom = vote_geometry(R, K, _sm_count(dev.index))
     votes = torch.empty((R, K), dtype=torch.float32, device=dev)
+    a_lo, a_hi = exp_band(threshold)
     VOTE.launch(
         src.data_ptr(), tgt.data_ptr(), valid.data_ptr(), R, K,
-        float(threshold), float(1.0 / (resolution * resolution)),
+        float(threshold), float(1.0 / (resolution * resolution)), a_lo, a_hi,
+        geom.rows_per_warp, geom.row_blocks, geom.tile, geom.smem_bytes,
         votes.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     return votes
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count

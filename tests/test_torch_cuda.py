@@ -16,8 +16,12 @@ at the rounding scale of |q|² + |r|² (float32 eps times a few); picks may
 differ only between references whose exact distances tie within that.
 Votes compare rounded scores with 0.96, so a borderline pair may flip: at
 most 1 per row and under 1 % of rows differ (tests/test_pallas_vote.py's
-own tolerance).
+own tolerance).  Against float64 truth, a row's count may differ only by
+its pairs whose float64 score lies within the float32 rounding bound of
+the threshold (see ``_votes_f64``).
 """
+
+import math
 
 import numpy as np
 import pytest
@@ -131,7 +135,8 @@ def test_knn5_refuses_bad_inputs(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,K", [(10, 163), (10, 829), (3, 300), (1, 1)])
+@pytest.mark.parametrize("R,K", [(10, 163), (10, 829), (3, 300), (1, 1),
+                                 (2, 7000)])  # 7000: j tiles stream
 def test_compat_votes_kernel_matches_plain(cuda, R, K):
     rng = np.random.default_rng(K)
     src = rng.uniform(-20, 20, (R, K, 3)).astype(np.float32)
@@ -150,6 +155,66 @@ def test_compat_votes_kernel_matches_plain(cuda, R, K):
     diff = (v_k - v_p).abs()
     assert diff.max().item() <= 1.0
     assert (diff > 0).float().mean().item() < 0.01 or R * K < 100
+
+
+# Gram-form d² = (|xᵢ|² + |xⱼ|²) − 2 xᵢ·xⱼ in float32: the norms, the dot
+# product, their sum and the difference each round at the scale of
+# |xᵢ|² + |xⱼ|², about 9 unit roundoffs (4.5 eps32) in all without FMA.
+VOTE_ULPS = 6.0
+
+
+def _votes_f64(src, tgt, valid, threshold):
+    """(float64 vote counts, per row the number of pairs whose float64
+    argument a = −gap² lies within the float32 rounding bound of
+    ln(threshold)) for one chunk, resolution 1."""
+    def dists(p):
+        p = p.double()
+        d = torch.cdist(p, p, compute_mode="donot_use_mm_for_euclid_dist")
+        n = (p * p).sum(-1)
+        e2 = VOTE_ULPS * EPS32 * (n[:, None] + n[None, :])
+        # the d² error carried through the sqrt, plus the sqrt's rounding
+        return d, torch.minimum(e2.sqrt(), e2 / d.clamp_min(1e-30)) + EPS32 * d
+
+    ds, es = dists(src)
+    dt, et = dists(tgt)
+    gap = ds - dt
+    eg = es + et + EPS32 * gap.abs()
+    a = -(gap * gap)
+    # gap², the sign and expf's 2 ulp (2^-22 of e^a, i.e. of a's scale)
+    da = 2 * gap.abs() * eg + eg * eg + 2 * EPS32 * a.abs() + 2.0 ** -22
+    c = math.log(threshold)
+    K = len(valid)
+    ok = ((valid[:, None] * valid[None, :]) > 0) & ~torch.eye(
+        K, dtype=torch.bool, device=valid.device)
+    counts = ((a < c) & ok).sum(-1)
+    loose = (((a - c).abs() <= da) & ok).sum(-1)
+    near = (((a - c).abs() < 0.01) & ok).sum()
+    return counts, loose, near
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,K", [(10, 163), (10, 829), (2, 7000)])
+def test_compat_votes_kernel_matches_float64_truth(cuda, R, K):
+    """Gaps spread around the threshold's (0.2 m): every count equals the
+    float64 count up to the row's pairs within rounding of the threshold."""
+    rng = np.random.default_rng(K + 1)
+    src = rng.uniform(-40, 40, (R, K, 3))
+    tgt = src + 0.3 + rng.normal(scale=0.1, size=(R, K, 3))
+    valid = rng.random((R, K)) < 0.9
+    s, t = (torch.as_tensor((a * valid[..., None]).astype(np.float32)).to(cuda)
+            for a in (src, tgt))
+    v = torch.as_tensor(valid.astype(np.float32)).to(cuda)
+    thr = float(np.float32(0.96))
+    got = compat_votes(s, t, v, thr)
+    n_loose = n_near = 0
+    for r in range(R):
+        want, loose, near = _votes_f64(s[r], t[r], v[r], thr)
+        assert ((got[r].double() - want).abs() <= loose).all(), r
+        n_loose += int(loose.sum())
+        n_near += int(near)
+    pairs = R * K * K
+    # the border is crowded, and the rounding bound is narrow
+    assert n_near > 0.01 * pairs and n_loose < 1e-3 * pairs, (n_near, n_loose)
 
 
 @pytest.mark.cuda

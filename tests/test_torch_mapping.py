@@ -16,7 +16,11 @@ frame) and land a few mm apart.  The step is therefore held to 1 cm and
 1e-3 in pose, 5 % in factor counts and 1 % in map points, while its inputs
 (local maps, stacks, 5-NN distances) must agree exactly or to float32
 rounding, and the well-conditioned fits (cond(AᵀA) < 1e4) but for the
-rare near-tie at the residual gate."""
+rare near-tie at the residual gate.  The step is held to the same bands
+with the mapping-stage vote on (``vote_mode="simple"``, K = 419 per chunk
+here), which must visibly remove plane factors on the JAX side."""
+
+import dataclasses
 
 import jax
 import jax.numpy as jnp
@@ -223,20 +227,26 @@ def test_scan_to_map_inputs_match_jax(carried):
     assert flips.sum() <= 0.01 * well.sum(), (flips.sum(), well.sum())
 
 
+@pytest.mark.parametrize("vote_mode", ["off", "simple"])
 @pytest.mark.parametrize("recenter", [False, True])
-def test_mapping_step_matches_jax(carried, recenter):
+def test_mapping_step_matches_jax(carried, recenter, vote_mode):
     jstate, corner, surf, q_odom, t_odom = carried
     if recenter:
         # move the grid so the pose cube sits past the margin: the step
         # shifts it back by one cell and re-sorts the whole store
         jstate = _shift_grid(jstate, 8)
-    new_j, jout = jm.mapping_step(jstate, corner, surf, q_odom, t_odom, MCFG)
+    cfg = dataclasses.replace(MCFG, vote_mode=vote_mode, vote_start_frame=0)
+    new_j, jout = jm.mapping_step(jstate, corner, surf, q_odom, t_odom, cfg)
+    if vote_mode != "off":
+        _, jout_off = jm.mapping_step(jstate, corner, surf, q_odom, t_odom,
+                                      dataclasses.replace(cfg, vote_mode="off"))
+        assert int(jout.surf_factors) < int(jout_off.surf_factors)
 
     tstate = convert.mapping_state_from_numpy(
         jax.tree_util.tree_map(np.asarray, jstate)._asdict())
     assert int(tstate.corner.mask.sum()) > 1000
     new_t, tout = tm.mapping_step(tstate, _cloud(corner), _cloud(surf),
-                                  _t(q_odom), _t(t_odom), MCFG)
+                                  _t(q_odom), _t(t_odom), cfg)
 
     np.testing.assert_array_equal(new_t.cen.numpy(), np.asarray(new_j.cen))
     assert (not np.array_equal(np.asarray(new_j.cen),

@@ -5,7 +5,10 @@ package.
 against the Pallas kernel in interpret mode and the XLA votes, with
 tests/test_pallas_vote.py's own tolerance: a distance rounding can flip a
 score sitting at the threshold, so each count may differ by at most 1 and
-fewer than 1% of the counts may differ."""
+fewer than 1% of the counts may differ.  The CUDA kernel's host-side
+pieces, its launch geometry and the band of exp arguments it decides
+without ``expf``, are checked here too; the kernel itself runs in
+test_torch_cuda.py."""
 
 import functools
 
@@ -17,6 +20,7 @@ import torch
 from light_loam_tpu.ops import graphvote as jg
 from light_loam_tpu.ops import pallas_vote as jpv
 from light_loam_tpu_torch.ops import graphvote as tg
+from light_loam_tpu_torch.ops import cuda_vote as cv
 from light_loam_tpu_torch.ops.cuda_vote import VOTE, compat_votes, compat_votes_plain
 
 torch.set_num_threads(2)
@@ -127,3 +131,57 @@ def test_run_vote_modes():
         tg.run_vote("full", src, tgt, valid, 5, 48)
     with pytest.raises(ValueError):
         tg.run_vote("bogus", src, tgt, valid, 5, 48)
+
+
+@pytest.mark.parametrize("R,K", [(10, 163), (10, 829), (3, 300), (1, 1),
+                                 (2, 7000), (1, 20000)])
+def test_vote_geometry_covers_every_row_once(R, K):
+    """Block b of the flattened grid serves chunk b // row_blocks and, warp
+    by warp, rows_per_warp rows each from (b % row_blocks) * 8 *
+    rows_per_warp on (vote.cu's index arithmetic)."""
+    g = cv.vote_geometry(R, K)
+    per_block = cv.WARPS_PER_BLOCK * g.rows_per_warp
+    seen = np.zeros((R, K), np.int64)
+    for b in range(R * g.row_blocks):
+        chunk, rb = divmod(b, g.row_blocks)
+        for w in range(cv.WARPS_PER_BLOCK):
+            for r in range(g.rows_per_warp):
+                row = rb * per_block + w * g.rows_per_warp + r
+                if row < K:
+                    seen[chunk, row] += 1
+    assert (seen == 1).all()
+
+
+def test_vote_geometry_fills_the_card_at_the_odometry_shape():
+    assert 10 * cv.vote_geometry(10, 163).row_blocks >= 132
+
+
+@pytest.mark.parametrize("K", [1, 163, 829, 6000, 20000])
+def test_vote_geometry_fits_shared_memory(K):
+    g = cv.vote_geometry(10, K)
+    assert g.tile == min(K, cv.MAX_TILE)
+    # the H100's per-block limit, and the 48 KB vote.cu takes without
+    # opting in to more
+    assert 0 < g.smem_bytes <= 232_448 and g.smem_bytes <= 48 * 1024
+
+
+def test_exp_band_decides_as_exp_outside_it():
+    """Every float32 argument within 1e-3 of ln 0.96 that falls outside the
+    band is decided by ``a < a_lo`` as float64 exp(a) < 0.96 decides it."""
+    a_lo, a_hi = cv.exp_band(0.96)
+    assert a_lo < a_hi
+    c = np.log(0.96)
+    lo, hi = np.float32(c - 1e-3), np.float32(c + 1e-3)
+    # every float32 between lo and hi (negative: bit patterns run backwards)
+    bits = np.arange(hi.view(np.int32), lo.view(np.int32) + 1, dtype=np.int32)
+    a = torch.as_tensor(bits.view(np.float32))
+    assert len(a) > 100_000
+    outside = (a < a_lo) | (a > a_hi)
+    exact = torch.exp(a.double()) < 0.96
+    assert outside.float().mean() > 0.95
+    assert torch.equal((a < a_lo)[outside], exact[outside])
+
+
+def test_exp_band_is_the_whole_line_where_the_proof_fails():
+    for t in (0.0, -1.0, float("inf"), float("nan"), 1e-36):
+        assert cv.exp_band(t) == (-np.inf, np.inf)
