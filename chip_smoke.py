@@ -8,10 +8,12 @@ exception and a non-zero exit):
 
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
   2. build: nvcc both kernels (seconds, ptxas resource lines);
-  3. knn5 vs its plain PyTorch version at the mapping stage's shapes;
+  3. knn5 vs its plain PyTorch version at the mapping stage's shapes; at
+     the live counts the stage hands over, timed per call and per launch
+     on the device, beside the least time the card could take (its bound);
   4. compat_votes vs its plain PyTorch version at the odometry and mapping
      vote shapes (R = 10, K = 163 and 829), timed per call and per launch
-     on the device;
+     on the device, beside its bound;
   5. the flagship pipeline (HDL64_KITTI, full widths) over 12 synthetic
      frames on the card: kernel launch counts, finite poses, every mapped
      position within 5 cm of the JAX package's, per-stage device ms and
@@ -104,6 +106,12 @@ POSITION_TOL_M = 0.05
 KNN_RTOL, KNN_ATOL, KNN_ULPS = 1e-5, 1e-4, 4.0
 # votes: a borderline score-vs-threshold pair may flip between roundings
 VOTE_MAX_DIFF, VOTE_MAX_FRAC = 1.0, 0.01
+# Bounds: published peaks of one H100 SXM (NVIDIA's data sheet, 700 W):
+# float32 outside the tensor cores, and HBM.  FLOP per pair: knn5's 3-term
+# dot (5), |q|^2 + |r|^2 (1) and -2 q.r (an FMA, 2); the vote's two 3-term
+# dots, two Gram sums, two square roots and the gap (about 30).
+H100_FP32_FLOPS, H100_BYTES_PER_S = 67e12, 3.35e12
+KNN_FLOP_PER_PAIR, VOTE_FLOP_PER_PAIR = 8, 30
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -221,9 +229,10 @@ def _check_knn(query, ref, d_k, i_k, d_p, i_p) -> tuple:
     return err, int(swaps.sum())
 
 
-def phase_knn(dev) -> dict:
+def knn_cases(dev):
+    """Phase 3's knn5 inputs at the mapping stage's capacities: yields
+    (name, case, query, ref, mask, counts, qc, rc)."""
     pts_a, pts_b = _scan_points(dev)
-    out = {}
     for Q, N, name in ((2048, 32768, "corner"), (8192, 65536, "surf")):
         query = pts_b[:Q].contiguous()
         ref = pts_a[:N].contiguous()
@@ -238,22 +247,56 @@ def phase_knn(dev) -> dict:
         for case, (qc, rc, mask) in cases.items():
             mask = mask & (torch.arange(N, device=dev) < rc)
             counts = torch.tensor([qc, rc], dtype=torch.int32, device=dev)
-            d_k, i_k = knn5(query, ref, mask, counts)
-            torch.cuda.synchronize()
-            d_p, i_p = knn5_plain(query, ref, mask, counts)
-            torch.cuda.synchronize()
-            err, mism = _check_knn(query, ref, d_k, i_k, d_p, i_p)
-            out[(name, case)] = dict(err=err, mismatches=mism, Q=Q, N=N,
+            yield name, case, query, ref, mask, counts, qc, rc
+
+
+def _bound(flop: float, nbytes: float) -> tuple:
+    """(least ms the card could take, "operations" or "bytes")."""
+    t_op = flop / H100_FP32_FLOPS * 1e3
+    t_mem = nbytes / H100_BYTES_PER_S * 1e3
+    return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
+
+
+def knn_bound(Q: int, qc: int, rc: int) -> tuple:
+    """knn5 visits qc x rc pairs; it reads the live queries (12 B), the
+    live references and their mask (13 B) and the counts, and writes every
+    output row (5 x (4 + 4) B)."""
+    return _bound(KNN_FLOP_PER_PAIR * qc * rc, 12 * qc + 13 * rc + 8 + 40 * Q)
+
+
+def vote_bound(R: int, K: int) -> tuple:
+    """compat_votes evaluates R x K x K pairs; it reads src, tgt and valid
+    (7 floats a point) and writes one float a point."""
+    return _bound(VOTE_FLOP_PER_PAIR * R * K * K, 32 * R * K)
+
+
+def phase_knn(dev) -> dict:
+    out = {}
+    for name, case, query, ref, mask, counts, qc, rc in knn_cases(dev):
+        Q, N = query.shape[0], ref.shape[0]
+        d_k, i_k = knn5(query, ref, mask, counts)
+        torch.cuda.synchronize()
+        d_p, i_p = knn5_plain(query, ref, mask, counts)
+        torch.cuda.synchronize()
+        err, mism = _check_knn(query, ref, d_k, i_k, d_p, i_p)
+        v = out[(name, case)] = dict(err=err, mismatches=mism, Q=Q, N=N,
                                      qc=qc, rc=rc)
-            if case == "below":
-                out[(name, case)]["ms"] = _median_ms(
-                    lambda: knn5(query, ref, mask, counts), 20)
-                out[(name, case)]["plain_ms"] = _median_ms(
-                    lambda: knn5_plain(query, ref, mask, counts), 5)
+        if case == "below":
+            kernel = functools.partial(knn5, query, ref, mask, counts)
+            v["ms"] = _median_ms(kernel, 20)
+            # the plain version launches hundreds of kernels a call: per
+            # call only, never behind the spin
+            v["plain_ms"] = _median_ms(
+                functools.partial(knn5_plain, query, ref, mask, counts), 5)
+            v["device_ms"] = _device_ms(kernel, 50)
+            v["bound_ms"], v["bound_by"] = knn_bound(Q, qc, rc)
     print("[3 knn5] " + " | ".join(
         f"{n}/{c} Q={v['Q']} N={v['N']} counts=({v['qc']},{v['rc']}) "
         f"max_abs_err={v['err']:.3g} tie_swaps={v['mismatches']}"
-        + (f" kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms"
+        + (f" kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms per "
+           f"call, kernel {v['device_ms']:.4f} ms per launch on the device, "
+           f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}), "
+           f"{v['bound_ms'] / v['device_ms']:.1%} of the bound"
            if "ms" in v else "")
         for (n, c), v in out.items()))
     return out
@@ -290,11 +333,13 @@ def phase_vote(dev) -> dict:
             device_ms=_device_ms(kernel, 100),
             plain_device_ms=_device_ms(plain, 20),
         )
+        out[K]["bound_ms"], out[K]["bound_by"] = vote_bound(R, K)
     print("[4 vote] " + " | ".join(
         f"R=10 K={K} max_abs_err={v['err']:.3g} differing={v['frac']:.4f} "
         f"kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms per call, "
         f"kernel {v['device_ms']:.4f} ms plain {v['plain_device_ms']:.4f} ms "
-        "per launch on the device"
+        f"per launch on the device, bound {v['bound_ms']:.4f} ms "
+        f"({v['bound_by']}), {v['bound_ms'] / v['device_ms']:.1%} of the bound"
         for K, v in out.items()))
     return out
 
@@ -397,17 +442,28 @@ def main() -> int:
          "source": "light_loam_tpu_torch/csrc/knn.cu",
          "replaces": "light_loam_tpu/ops/pallas_knn.py:69",
          "launches": launches["knn.cu"], "max_abs_err": knn_err,
-         "ms": surf["ms"], "plain_ms": surf["plain_ms"]},
+         "ms": surf["ms"], "plain_ms": surf["plain_ms"],
+         "device_ms": surf["device_ms"], "bound_ms": surf["bound_ms"],
+         "bound_by": surf["bound_by"], "library_ms": None,
+         "shapes": [
+             {k: v[k] for k in ("Q", "N", "qc", "rc", "ms", "plain_ms",
+                                "device_ms", "bound_ms", "bound_by")}
+             | {"max_abs_err": v["err"]}
+             for (_, case), v in knn.items() if case == "below"]},
         {"name": "compat_votes", "route": "cuda",
          "source": "light_loam_tpu_torch/csrc/vote.cu",
          "replaces": "light_loam_tpu/ops/pallas_vote.py:33",
          "launches": launches["vote.cu"],
          "max_abs_err": max(v["err"] for v in vote.values()),
          "ms": vote[163]["ms"], "plain_ms": vote[163]["plain_ms"],
+         "device_ms": vote[163]["device_ms"],
+         "bound_ms": vote[163]["bound_ms"],
+         "bound_by": vote[163]["bound_by"], "library_ms": None,
          "shapes": [
              {"R": 10, "K": K, "max_abs_err": v["err"], "ms": v["ms"],
               "plain_ms": v["plain_ms"], "device_ms": v["device_ms"],
-              "plain_device_ms": v["plain_device_ms"]}
+              "plain_device_ms": v["plain_device_ms"],
+              "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
              for K, v in vote.items()]},
     ]}))
     print(smi)

@@ -15,11 +15,17 @@ Contract of both, the JAX package's ``knn_pallas`` with its counts:
   * a slot with no live neighbour left holds (1e30, 0).  The JAX package's
     ``knn_tiled`` may carry another index there; every consumer gates those
     slots out by distance (models/mapping.py).
+
+The kernel splits the live reference range into segments across blocks and
+merges the segments' lists; its launch geometry (``knn_geometry``) is
+computed here, on the host, from the capacities (Q, N) alone.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -30,9 +36,61 @@ K = 5
 
 KNN5 = CudaKernel(
     "knn.cu", "knn5_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int, ctypes.c_int]
-    + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p],
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    + [ctypes.c_int, ctypes.c_void_p],
 )
+
+TILE = 256                 # knn.cu TILE: float4 references staged at once
+QCAP = 16                  # knn.cu QCAP: queued candidates per query
+MAX_SEGMENTS = 32          # knn.cu MAX_SEGMENTS
+MIN_SEGMENT = 256          # references per segment at capacity, at least
+QUERY_BLOCKS = (64, 128)   # block sizes knn.cu is built for
+H100_SMS = 132
+
+
+class KnnGeometry(NamedTuple):
+    """Launch geometry of knn.cu: ``query_blocks`` blocks of
+    ``queries_per_block`` queries (one a thread), each against every one of
+    ``segments`` reference segments."""
+    queries_per_block: int
+    query_blocks: int
+    segments: int
+
+    @property
+    def blocks(self) -> int:
+        return self.query_blocks * self.segments
+
+    @property
+    def smem_bytes(self) -> int:
+        """Static shared memory: the float4 tile and the candidate queues
+        (QCAP (x, index) pairs per query)."""
+        return 16 * TILE + 8 * QCAP * self.queries_per_block
+
+
+@functools.lru_cache(maxsize=64)
+def knn_geometry(Q: int, N: int, queries_per_block: int = 128,
+                 segments: int | None = None) -> KnnGeometry:
+    """The most segments, a power of two up to MAX_SEGMENTS, that leave
+    MIN_SEGMENT references each at capacity; ``segments`` overrides it.
+    On the H100, 32 segments of 128-query blocks were the fastest of the
+    sweep at both mapping shapes (PERF.md)."""
+    if queries_per_block not in QUERY_BLOCKS:
+        raise ValueError(f"knn5: no kernel for {queries_per_block} queries "
+                         "per block")
+    if segments is None:
+        segments = 1
+        while (segments * 2 <= MAX_SEGMENTS
+               and N // (segments * 2) >= MIN_SEGMENT):
+            segments *= 2
+    return KnnGeometry(queries_per_block, -(-Q // queries_per_block),
+                       segments)
+
+
+def segment_length(rc: int, segments: int) -> int:
+    """References per segment at live count ``rc`` (knn.cu's
+    segment_length): segment s covers [s * length, min((s + 1) * length,
+    rc))."""
+    return -(-rc // segments)
 
 
 def _select_k(d: torch.Tensor, idx: torch.Tensor, k: int):
@@ -103,11 +161,24 @@ def knn5(query: torch.Tensor, ref: torch.Tensor, mask: torch.Tensor,
     _check("ref", ref, torch.float32, (N, 3), dev)
     _check("mask", mask, torch.bool, (N,), dev)
     _check("counts", counts, torch.int32, (2,), dev)
+    return launch_knn5(query, ref, mask, counts, knn_geometry(Q, N))
+
+
+def launch_knn5(query, ref, mask, counts, geom: KnnGeometry):
+    """One launch of knn.cu under ``geom`` on checked inputs."""
+    Q, N = query.shape[0], ref.shape[0]
+    dev = query.device
     out_d = torch.empty((Q, K), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, K), dtype=torch.int32, device=dev)
+    part_d = torch.empty((geom.segments, Q, K), dtype=torch.float32,
+                         device=dev)
+    part_i = torch.empty((geom.segments, Q, K), dtype=torch.int32,
+                         device=dev)
     KNN5.launch(
         query.data_ptr(), ref.data_ptr(), mask.data_ptr(), counts.data_ptr(),
-        Q, N, out_d.data_ptr(), out_i.data_ptr(), dev.index,
+        Q, N, geom.queries_per_block, geom.segments,
+        part_d.data_ptr(), part_i.data_ptr(),
+        out_d.data_ptr(), out_i.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     return out_d, out_i

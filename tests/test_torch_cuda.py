@@ -18,7 +18,7 @@ Votes compare rounded scores with 0.96, so a borderline pair may flip: at
 most 1 per row and under 1 % of rows differ (tests/test_pallas_vote.py's
 own tolerance).  Against float64 truth, a row's count may differ only by
 its pairs whose float64 score lies within the float32 rounding bound of
-the threshold (see ``_votes_f64``).
+the threshold (see ``votes_f64``).
 """
 
 import math
@@ -29,7 +29,13 @@ import torch
 
 from light_loam_tpu_torch.models import pipeline as tpl
 from light_loam_tpu_torch.ops import cuda_build
-from light_loam_tpu_torch.ops.cuda_knn import KNN5, knn5, knn5_plain
+from light_loam_tpu_torch.ops.cuda_knn import (
+    KNN5,
+    knn5,
+    knn5_plain,
+    knn_geometry,
+    segment_length,
+)
 from light_loam_tpu_torch.ops.cuda_vote import (
     VOTE,
     compat_votes,
@@ -97,6 +103,9 @@ def _check_knn(query, ref, d_k, i_k, d_p, i_p):
     (8192, 65536, 8192, 65536),  # surf shapes, full
     (256, 4096, 0, 4096),        # no live query
     (256, 4096, 256, 3),         # fewer than 5 live references
+    (2048, 32768, 2048, 12289),  # rc not a multiple of the segment count
+    (2048, 32768, 1280, 17),     # rc below the segment count
+    (256, 4096, 256, 0),         # no live reference
 ])
 def test_knn5_kernel_matches_plain(cuda, Q, N, qc, rc):
     rng = np.random.default_rng(Q + N)
@@ -114,6 +123,45 @@ def test_knn5_kernel_matches_plain(cuda, Q, N, qc, rc):
     assert d_k.dtype == torch.float32 and i_k.dtype == torch.int32
     assert torch.all(d_k[qc:] == 1e30) and torch.all(i_k[qc:] == 0)
     _check_knn(args[0], args[1], d_k, i_k, d_p, i_p)
+
+
+def lattice_knn_inputs(Q, N, rc, seed, segments=None):
+    """Integer coordinates in [-20, 20], where every product and sum of the
+    Gram form is exact in float32, so any two correct 5-NN agree bit for
+    bit.  41^3 lattice points for up to 65536 references tie often; on top,
+    three copies of one reference straddle every border of ``segments``
+    segments (the kernel's own by default), and the queries sit on or next
+    to references."""
+    rng = np.random.default_rng(seed)
+    ref = rng.integers(-20, 21, (N, 3)).astype(np.float32)
+    length = segment_length(rc, segments or knn_geometry(Q, N).segments)
+    for b in range(length, rc, max(length, 1)):
+        ref[b - 1:b + 2] = ref[b - 1]
+    query = (ref[rng.integers(0, max(rc, 1), Q)]
+             + rng.integers(-1, 2, (Q, 3))).astype(np.float32)
+    mask = (rng.random(N) < 0.9) & (np.arange(N) < rc)
+    return query, ref, mask
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Q,N,qc,rc", [
+    (2048, 32768, 1280, 12288),  # corner shapes, live prefixes
+    (2048, 32768, 2048, 12289),
+    (8192, 65536, 5120, 24576),  # surf shapes, live prefixes
+    (300, 5000, 300, 4001),
+])
+def test_knn5_kernel_equals_plain_exactly_on_ties(cuda, Q, N, qc, rc):
+    """Exact arithmetic leaves only the tie rule: the kernel must pick the
+    lower index among equal distances, across segment borders too."""
+    arrays = lattice_knn_inputs(Q, N, rc, seed=rc)
+    args = [torch.as_tensor(a).to(cuda) for a in arrays]
+    counts = torch.tensor([qc, rc], dtype=torch.int32, device=cuda)
+    d_k, i_k = knn5(*args, counts)
+    d_p, i_p = knn5_plain(*args, counts)
+    torch.cuda.synchronize()
+    assert torch.equal(d_k, d_p) and torch.equal(i_k, i_p)
+    # ties did occur: some query has two equal distances among its picks
+    assert bool((d_p[:qc, 1:] == d_p[:qc, :-1]).any())
 
 
 @pytest.mark.cuda
@@ -163,7 +211,7 @@ def test_compat_votes_kernel_matches_plain(cuda, R, K):
 VOTE_ULPS = 6.0
 
 
-def _votes_f64(src, tgt, valid, threshold):
+def votes_f64(src, tgt, valid, threshold):
     """(float64 vote counts, per row the number of pairs whose float64
     argument a = −gap² lies within the float32 rounding bound of
     ln(threshold)) for one chunk, resolution 1."""
@@ -208,7 +256,7 @@ def test_compat_votes_kernel_matches_float64_truth(cuda, R, K):
     got = compat_votes(s, t, v, thr)
     n_loose = n_near = 0
     for r in range(R):
-        want, loose, near = _votes_f64(s[r], t[r], v[r], thr)
+        want, loose, near = votes_f64(s[r], t[r], v[r], thr)
         assert ((got[r].double() - want).abs() <= loose).all(), r
         n_loose += int(loose.sum())
         n_near += int(near)

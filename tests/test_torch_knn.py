@@ -8,7 +8,11 @@ tests/test_pallas_knn.py: distances to rtol 1e-5 / atol 1e-4 plus two float32
 ulps of |q|² + |r|² — the Gram form ‖q‖² + ‖r‖² − 2q·r rounds at that scale
 (~5e-4 m² here), and jitted XLA contracts it into an FMA where eager PyTorch
 does not; indices equal where a neighbour exists (d < 1e30; empty slots
-carry index 0 here and any index in knn_tiled)."""
+carry index 0 here and any index in knn_tiled).
+
+The CUDA kernel's host-side launch geometry, and its algorithm (segment
+top-5 lists merged lexicographically) emulated in plain torch, are checked
+here too; the kernel itself runs in test_torch_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +25,9 @@ from light_loam_tpu.ops.pallas_knn import knn_pallas
 from light_loam_tpu.utils.synthetic import World, simulate_scan
 from light_loam_tpu_torch.core.frame import PointCloud as TCloud
 from light_loam_tpu_torch.ops import knn as tk
+from light_loam_tpu_torch.ops import cuda_knn as ck
 from light_loam_tpu_torch.ops.cuda_knn import KNN5, knn5, knn5_plain
+from test_torch_cuda import lattice_knn_inputs
 
 torch.set_num_threads(2)
 
@@ -191,3 +197,92 @@ def test_surf_correspondences_grid_match_jax(scans):
     for name in ("a_idx", "b_idx", "c_idx", "valid"):
         np.testing.assert_array_equal(getattr(t, name).numpy(),
                                       np.asarray(getattr(j, name)))
+
+
+# corner and surf capacities of the flagship mapping stage (HDL64_KITTI)
+FLAGSHIP = [(2048, 32768), (8192, 65536)]
+
+
+@pytest.mark.parametrize("Q,N", FLAGSHIP)
+@pytest.mark.parametrize("rc", [0, 1, 5, "S-1", "tile+1", 12288, 24576, "N"])
+def test_knn_geometry_covers_every_pair_once(Q, N, rc):
+    """Block (b, s) of knn.cu pairs rows [b * QB, b * QB + QB) below Q with
+    references [s * length, min((s + 1) * length, rc)): each axis is covered
+    once, so each pair of the live grid is."""
+    g = ck.knn_geometry(Q, N)
+    rc = {"S-1": g.segments - 1, "tile+1": ck.TILE + 1, "N": N}.get(rc, rc)
+    length = ck.segment_length(rc, g.segments)
+    refs = np.zeros(rc, np.int64)
+    for s in range(g.segments):
+        lo = min(s * length, rc)
+        refs[lo:min(lo + length, rc)] += 1
+    rows = np.zeros(Q, np.int64)
+    for b in range(g.query_blocks):
+        rows[b * g.queries_per_block:(b + 1) * g.queries_per_block] += 1
+    assert (refs == 1).all() and (rows == 1).all()
+    if rc > (g.segments - 1) ** 2:
+        # every segment holds live references
+        assert (g.segments - 1) * length < rc
+
+
+@pytest.mark.parametrize("Q,N", FLAGSHIP)
+def test_knn_geometry_fills_the_card(Q, N):
+    g = ck.knn_geometry(Q, N)
+    assert g.blocks >= ck.H100_SMS
+    # at the live counts the mapping stage hands over (chip_smoke phase 3's
+    # "below": 5/8 of the queries), at least two blocks per SM stay live
+    live_rows = Q * 5 // 8
+    assert -(-live_rows // g.queries_per_block) * g.segments >= 2 * ck.H100_SMS
+    # static shared memory, without opting in to more
+    assert g.smem_bytes <= 48 * 1024
+
+
+def _split_knn5(query, ref, mask, qc, rc, segments):
+    """knn.cu's algorithm in plain torch: per segment the lexicographic
+    top-5 of (d, index) over its references, padded with (1e30, 0); then
+    the lexicographic top-5 of the union of the segment lists."""
+    Q = query.shape[0]
+    big, inf = ck.BIG, float("inf")
+    q2 = (query * query).sum(-1)
+    r2 = torch.where(mask, (ref * ref).sum(-1), inf)
+    d = torch.clamp((q2[:, None] + r2[None, :]) - 2.0 * (query @ ref.T), min=0)
+    length = ck.segment_length(rc, segments)
+    lists_d, lists_i = [], []
+    for s in range(segments):
+        lo = min(s * length, rc)
+        hi = min(lo + length, rc)
+        dd = torch.cat([d[:, lo:hi], torch.full((Q, ck.K), inf)], 1)
+        ii = torch.cat([torch.arange(lo, hi).expand(Q, -1),
+                        torch.zeros((Q, ck.K), dtype=torch.int64)], 1)
+        pick = torch.sort(dd, dim=1, stable=True).indices[:, :ck.K]
+        sd, si = dd.gather(1, pick), ii.gather(1, pick)
+        real = sd < big
+        lists_d.append(torch.where(real, sd, big))
+        lists_i.append(torch.where(real, si, 0))
+    md, mi = torch.cat(lists_d, 1), torch.cat(lists_i, 1)
+    # lexicographic on (d, index): by index, then stably by distance
+    by_i = torch.sort(mi, dim=1, stable=True).indices
+    md, mi = md.gather(1, by_i), mi.gather(1, by_i)
+    by_d = torch.sort(md, dim=1, stable=True).indices[:, :ck.K]
+    out_d, out_i = md.gather(1, by_d), mi.gather(1, by_d)
+    dead = torch.arange(Q) >= qc
+    out_d[dead], out_i[dead] = big, 0
+    return out_d, out_i.to(torch.int32)
+
+
+@pytest.mark.parametrize("Q,N,qc,rc", [(300, 5000, 300, 4001),
+                                       (256, 4096, 200, 1000),
+                                       (64, 1024, 64, 7)])
+@pytest.mark.parametrize("segments", [None, 5, 32])
+def test_segment_lists_and_merge_equal_the_single_scan(Q, N, qc, rc,
+                                                       segments):
+    """On lattice inputs (exact distances, many ties, tied references on
+    the segment borders) the split algorithm equals knn5_plain exactly."""
+    segments = segments or ck.knn_geometry(Q, N).segments
+    q, r, m = (torch.as_tensor(a) for a in
+               lattice_knn_inputs(Q, N, rc, seed=rc, segments=segments))
+    counts = _counts(qc, rc)
+    d_s, i_s = _split_knn5(q, r, m, qc, rc, segments)
+    d_p, i_p = knn5_plain(q, r, m, counts)
+    assert torch.equal(d_s, d_p) and torch.equal(i_s, i_p)
+    assert bool((d_p[:qc, 1:] == d_p[:qc, :-1]).any())

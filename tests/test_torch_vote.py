@@ -1,11 +1,12 @@
 """Graph-vote counts and the simple vote of the PyTorch port against the JAX
 package.
 
-``compat_votes_plain`` (the plain version of the CUDA vote kernel) is held
-against the Pallas kernel in interpret mode and the XLA votes, with
-tests/test_pallas_vote.py's own tolerance: a distance rounding can flip a
-score sitting at the threshold, so each count may differ by at most 1 and
-fewer than 1% of the counts may differ.  The CUDA kernel's host-side
+``compat_votes_plain`` (the plain version of the CUDA vote kernel), the
+Pallas kernel in interpret mode and the XLA votes are each held to float64
+truth: a distance rounding can flip a score sitting at the threshold, so a
+count may differ from the float64 count only by the row's pairs whose
+float64 score lies within the float32 rounding bound of the threshold
+(``votes_f64`` of test_torch_cuda.py).  The CUDA kernel's host-side
 pieces, its launch geometry and the band of exp arguments it decides
 without ``expf``, are checked here too; the kernel itself runs in
 test_torch_cuda.py."""
@@ -22,6 +23,7 @@ from light_loam_tpu.ops import pallas_vote as jpv
 from light_loam_tpu_torch.ops import graphvote as tg
 from light_loam_tpu_torch.ops import cuda_vote as cv
 from light_loam_tpu_torch.ops.cuda_vote import VOTE, compat_votes, compat_votes_plain
+from test_torch_cuda import votes_f64
 
 torch.set_num_threads(2)
 
@@ -46,24 +48,33 @@ def _chunks(R, K, seed):
         (tgt * valid[..., None]).astype(np.float32), valid
 
 
-def _assert_votes_close(got, want):
-    diff = np.abs(got - want)
-    assert (diff <= 1.0).all() and (diff > 0).mean() < 0.01, (
-        f"max diff {diff.max()}, frac {np.mean(diff > 0)}")
-
-
 @pytest.mark.parametrize("R,K", [(4, 96), (10, 163)])
 def test_plain_votes_match_pallas_and_xla(R, K):
+    """All three against float64 truth (module docstring): a fraction cap
+    at a few hundred counts cannot tell one flipped borderline pair from a
+    fault, the rounding bound can."""
     src, tgt, valid = _chunks(R, K, seed=K)
-    got = compat_votes_plain(torch.as_tensor(src), torch.as_tensor(tgt),
-                             torch.as_tensor(valid)).numpy()
-    assert got.max() > 0
-    pallas = np.asarray(jpv.compat_votes_pallas(
-        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(valid),
-        interpret=True))
-    _assert_votes_close(got, pallas)
-    _assert_votes_close(got, np.asarray(_xla_votes(
-        jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(valid))))
+    thr = float(np.float32(0.96))
+    got = {
+        "plain": compat_votes_plain(torch.as_tensor(src), torch.as_tensor(tgt),
+                                    torch.as_tensor(valid), thr).numpy(),
+        "pallas": np.asarray(jpv.compat_votes_pallas(
+            jnp.asarray(src), jnp.asarray(tgt), jnp.asarray(valid),
+            threshold=thr, interpret=True)),
+        "xla": np.asarray(_xla_votes(jnp.asarray(src), jnp.asarray(tgt),
+                                     jnp.asarray(valid), threshold=thr)),
+    }
+    assert got["plain"].max() > 0
+    n_loose = 0
+    for r in range(R):
+        want, loose, _ = votes_f64(*(torch.as_tensor(a[r])
+                                     for a in (src, tgt, valid)), thr)
+        n_loose += int(loose.sum())
+        for name, votes in got.items():
+            off = np.abs(votes[r] - want.numpy())
+            assert (off <= loose.numpy()).all(), (name, r, off.max())
+    # the rounding band is narrow: it excuses a few pairs, not a fault
+    assert n_loose < 1e-3 * R * K * K, n_loose
 
 
 def test_empty_chunks_vote_zero():
