@@ -107,11 +107,19 @@ KNN_RTOL, KNN_ATOL, KNN_ULPS = 1e-5, 1e-4, 4.0
 # votes: a borderline score-vs-threshold pair may flip between roundings
 VOTE_MAX_DIFF, VOTE_MAX_FRAC = 1.0, 0.01
 # Bounds: published peaks of one H100 SXM (NVIDIA's data sheet, 700 W):
-# float32 outside the tensor cores, and HBM.  FLOP per pair: knn5's 3-term
-# dot (5), |q|^2 + |r|^2 (1) and -2 q.r (an FMA, 2); the vote's two 3-term
-# dots, two Gram sums, two square roots and the gap (about 30).
+# float32 outside the tensor cores, and HBM.  The special-function units
+# (MUFU: reciprocal square root, exp2) return 16 results per clock per SM
+# against 256 FP32 FLOP (CUDA C++ Programming Guide, throughput table for
+# compute capability 9.0), so 67 / 16 T results/s.  FLOP per pair: knn5's
+# 3-term dot (5: a multiply and two FMAs), |q|^2 + |r|^2 (1) and -2 q.r (an
+# FMA, 2), so 8.  The vote's (vote.cu's pair loop): two such Gram distances
+# (2 x 8), the gap (1) and the scaled square -(gap^2) / res^2 (2), so 19,
+# plus two square roots, each one MUFU operation (an IEEE sqrtf adds
+# refinement FMAs, not counted: the bound stays a least time).  The few
+# expf of the pairs inside the exp band are not counted either.
 H100_FP32_FLOPS, H100_BYTES_PER_S = 67e12, 3.35e12
-KNN_FLOP_PER_PAIR, VOTE_FLOP_PER_PAIR = 8, 30
+H100_MUFU_PER_S = H100_FP32_FLOPS / 16
+KNN_FLOP_PER_PAIR, VOTE_FLOP_PER_PAIR, VOTE_SQRT_PER_PAIR = 8, 19, 2
 
 
 def _median_ms(fn, reps: int) -> float:
@@ -250,9 +258,11 @@ def knn_cases(dev):
             yield name, case, query, ref, mask, counts, qc, rc
 
 
-def _bound(flop: float, nbytes: float) -> tuple:
-    """(least ms the card could take, "operations" or "bytes")."""
-    t_op = flop / H100_FP32_FLOPS * 1e3
+def _bound(flop: float, nbytes: float, mufu: float = 0.0) -> tuple:
+    """(least ms the card could take, "operations" or "bytes"): the FP32
+    FLOP and the MUFU operations run on separate units, so the operations
+    take the longer of the two."""
+    t_op = max(flop / H100_FP32_FLOPS, mufu / H100_MUFU_PER_S) * 1e3
     t_mem = nbytes / H100_BYTES_PER_S * 1e3
     return (t_op, "operations") if t_op >= t_mem else (t_mem, "bytes")
 
@@ -267,7 +277,9 @@ def knn_bound(Q: int, qc: int, rc: int) -> tuple:
 def vote_bound(R: int, K: int) -> tuple:
     """compat_votes evaluates R x K x K pairs; it reads src, tgt and valid
     (7 floats a point) and writes one float a point."""
-    return _bound(VOTE_FLOP_PER_PAIR * R * K * K, 32 * R * K)
+    pairs = R * K * K
+    return _bound(VOTE_FLOP_PER_PAIR * pairs, 32 * R * K,
+                  VOTE_SQRT_PER_PAIR * pairs)
 
 
 def phase_knn(dev) -> dict:

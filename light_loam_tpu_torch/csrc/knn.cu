@@ -26,8 +26,9 @@
 // (a split of the capacity N would leave most of them dead: at the corner
 // shape rc is 12288 of 32768).  Segment lengths are not rounded to the
 // staging tile: at S = 32 and rc = 12288 that would leave 8 segments empty.
-// The wrapper (ops/cuda_knn.py knn_geometry) picks S and the block size from
-// the capacities (Q, N) alone, so a call never reads the counts on the host.
+// The wrapper (ops/cuda_knn.py knn_geometry) picks S from the capacities
+// (Q, N) alone, so a call never reads the counts on the host.  Blocks hold
+// QB = 128 queries: 64 was never faster at either mapping shape (PERF.md).
 //
 // Per segment: one query per thread, the segment's references staged through
 // shared memory as float4 (x, y, z, |r|^2) in tiles of 256 and read as
@@ -102,6 +103,7 @@
 namespace {
 
 constexpr int K = 5;
+constexpr int QB = 128;          // queries per block, one a thread
 constexpr int TILE = 256;        // float4 references staged per block at once
 constexpr int GROUP = 8;         // references between two flush checks
 constexpr int QCAP = 16;         // queued candidates per query, at most
@@ -123,7 +125,6 @@ __device__ __forceinline__ bool lex_less(float d, int i, float e, int j) {
 // end) of cand, oldest (lowest index) first, by the unsplit kernel's
 // strict-< insertion.  A slot holds (bits of (q2 + |r|^2) - 2 q.r, index):
 // the clamp at 0 is applied here, giving the unsplit kernel's d bit for bit.
-template <int QB>
 __device__ __forceinline__ void insert_queued(float (&bd)[K], int (&bi)[K],
                                               const int2* cand, int first,
                                               int end) {
@@ -167,7 +168,6 @@ __device__ __forceinline__ void append_unless_above(unsigned& addr, float x,
 // Block (x, y): queries [x * QB, x * QB + QB) against reference segment y,
 // one query per thread; writes each live query's segment list to
 // part_(d|i)[y][row][0..4].
-template <int QB>
 __global__ void __launch_bounds__(QB)
 knn5_segment_kernel(const float* __restrict__ query,
                     const float* __restrict__ ref,
@@ -238,7 +238,7 @@ knn5_segment_kernel(const float* __restrict__ query,
     }
   };
   auto flush = [&]() {
-    insert_queued<QB>(bd, bi, cand, col,
+    insert_queued(bd, bi, cand, col,
                       col + static_cast<int>((slot - first) / 8u));
     slot = first;
     tau = bd[K - 1];
@@ -360,34 +360,18 @@ knn5_merge_kernel(const int* __restrict__ counts, int Q, int segments,
   }
 }
 
-template <int QB>
-cudaError_t launch(const float* query, const float* ref,
-                   const unsigned char* mask, const int* counts, int Q, int N,
-                   int segments, float* part_d, int* part_i, float* out_d,
-                   int* out_i, cudaStream_t stream) {
-  knn5_segment_kernel<QB><<<dim3((Q + QB - 1) / QB, segments), QB, 0,
-                            stream>>>(query, ref, mask, counts, Q, N, part_d,
-                                      part_i);
-  const cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return err;
-  knn5_merge_kernel<<<(Q + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS,
-                      0, stream>>>(counts, Q, segments, part_d, part_i, out_d,
-                                   out_i);
-  return cudaGetLastError();
-}
-
 }  // namespace
 
 // query (Q,3) f32, ref (N,3) f32, mask (N,) bool, counts (2,) int32
 // [query_count, ref_count], all on `device`; writes out_d (Q,5) f32 and
-// out_i (Q,5) int32.  The geometry (64 or 128 queries per block, 1 to 32
-// segments) comes from the wrapper, with scratch part_d (Q,segments,5)
-// f32 and part_i (Q,segments,5) int32.  Launches the segment kernel and the
-// merge on `stream`; returns cudaGetLastError().
+// out_i (Q,5) int32.  The segment count (1 to 32) comes from the wrapper,
+// with scratch part_d (segments,Q,5) f32 and part_i (segments,Q,5) int32.
+// Launches the segment kernel and the merge on `stream`; returns
+// cudaGetLastError().
 extern "C" int knn5_launch(const void* query, const void* ref,
                            const void* mask, const void* counts, int Q, int N,
-                           int queries_per_block, int segments, void* part_d,
-                           void* part_i, void* out_d, void* out_i, int device,
+                           int segments, void* part_d, void* part_i,
+                           void* out_d, void* out_i, int device,
                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -395,24 +379,18 @@ extern "C" int knn5_launch(const void* query, const void* ref,
   if (segments < 1 || segments > MAX_SEGMENTS) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  const auto* q = static_cast<const float*>(query);
-  const auto* r = static_cast<const float*>(ref);
-  const auto* m = static_cast<const unsigned char*>(mask);
   const auto* c = static_cast<const int*>(counts);
   auto* pd = static_cast<float*>(part_d);
   auto* pi = static_cast<int*>(part_i);
-  auto* od = static_cast<float*>(out_d);
-  auto* oi = static_cast<int*>(out_i);
   auto st = static_cast<cudaStream_t>(stream);
-  switch (queries_per_block) {
-    case 64:
-      err = launch<64>(q, r, m, c, Q, N, segments, pd, pi, od, oi, st);
-      break;
-    case 128:
-      err = launch<128>(q, r, m, c, Q, N, segments, pd, pi, od, oi, st);
-      break;
-    default:
-      err = cudaErrorInvalidValue;
-  }
-  return static_cast<int>(err);
+  knn5_segment_kernel<<<dim3((Q + QB - 1) / QB, segments), QB, 0, st>>>(
+      static_cast<const float*>(query), static_cast<const float*>(ref),
+      static_cast<const unsigned char*>(mask), c, Q, N, pd, pi);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  knn5_merge_kernel<<<(Q + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS,
+                      0, st>>>(c, Q, segments, pd, pi,
+                               static_cast<float*>(out_d),
+                               static_cast<int*>(out_i));
+  return static_cast<int>(cudaGetLastError());
 }

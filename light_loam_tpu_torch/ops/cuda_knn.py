@@ -36,23 +36,21 @@ K = 5
 
 KNN5 = CudaKernel(
     "knn.cu", "knn5_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
     + [ctypes.c_int, ctypes.c_void_p],
 )
 
-TILE = 256                 # knn.cu TILE: float4 references staged at once
-QCAP = 16                  # knn.cu QCAP: queued candidates per query
-MAX_SEGMENTS = 32          # knn.cu MAX_SEGMENTS
+# knn.cu's QB and MAX_SEGMENTS: these must match the kernel source
+# (tests/test_torch_knn.py reads them from it)
+QUERIES_PER_BLOCK = 128
+MAX_SEGMENTS = 32
 MIN_SEGMENT = 256          # references per segment at capacity, at least
-QUERY_BLOCKS = (64, 128)   # block sizes knn.cu is built for
-H100_SMS = 132
 
 
 class KnnGeometry(NamedTuple):
     """Launch geometry of knn.cu: ``query_blocks`` blocks of
-    ``queries_per_block`` queries (one a thread), each against every one of
+    QUERIES_PER_BLOCK queries (one a thread), each against every one of
     ``segments`` reference segments."""
-    queries_per_block: int
     query_blocks: int
     segments: int
 
@@ -60,30 +58,16 @@ class KnnGeometry(NamedTuple):
     def blocks(self) -> int:
         return self.query_blocks * self.segments
 
-    @property
-    def smem_bytes(self) -> int:
-        """Static shared memory: the float4 tile and the candidate queues
-        (QCAP (x, index) pairs per query)."""
-        return 16 * TILE + 8 * QCAP * self.queries_per_block
-
 
 @functools.lru_cache(maxsize=64)
-def knn_geometry(Q: int, N: int, queries_per_block: int = 128,
-                 segments: int | None = None) -> KnnGeometry:
+def knn_geometry(Q: int, N: int) -> KnnGeometry:
     """The most segments, a power of two up to MAX_SEGMENTS, that leave
-    MIN_SEGMENT references each at capacity; ``segments`` overrides it.
-    On the H100, 32 segments of 128-query blocks were the fastest of the
-    sweep at both mapping shapes (PERF.md)."""
-    if queries_per_block not in QUERY_BLOCKS:
-        raise ValueError(f"knn5: no kernel for {queries_per_block} queries "
-                         "per block")
-    if segments is None:
-        segments = 1
-        while (segments * 2 <= MAX_SEGMENTS
-               and N // (segments * 2) >= MIN_SEGMENT):
-            segments *= 2
-    return KnnGeometry(queries_per_block, -(-Q // queries_per_block),
-                       segments)
+    MIN_SEGMENT references each at capacity.  On the H100, 32 segments
+    were the fastest of the sweep at both mapping shapes (PERF.md)."""
+    segments = 1
+    while segments * 2 <= MAX_SEGMENTS and N // (segments * 2) >= MIN_SEGMENT:
+        segments *= 2
+    return KnnGeometry(-(-Q // QUERIES_PER_BLOCK), segments)
 
 
 def segment_length(rc: int, segments: int) -> int:
@@ -161,13 +145,7 @@ def knn5(query: torch.Tensor, ref: torch.Tensor, mask: torch.Tensor,
     _check("ref", ref, torch.float32, (N, 3), dev)
     _check("mask", mask, torch.bool, (N,), dev)
     _check("counts", counts, torch.int32, (2,), dev)
-    return launch_knn5(query, ref, mask, counts, knn_geometry(Q, N))
-
-
-def launch_knn5(query, ref, mask, counts, geom: KnnGeometry):
-    """One launch of knn.cu under ``geom`` on checked inputs."""
-    Q, N = query.shape[0], ref.shape[0]
-    dev = query.device
+    geom = knn_geometry(Q, N)
     out_d = torch.empty((Q, K), dtype=torch.float32, device=dev)
     out_i = torch.empty((Q, K), dtype=torch.int32, device=dev)
     part_d = torch.empty((geom.segments, Q, K), dtype=torch.float32,
@@ -176,7 +154,7 @@ def launch_knn5(query, ref, mask, counts, geom: KnnGeometry):
                          device=dev)
     KNN5.launch(
         query.data_ptr(), ref.data_ptr(), mask.data_ptr(), counts.data_ptr(),
-        Q, N, geom.queries_per_block, geom.segments,
+        Q, N, geom.segments,
         part_d.data_ptr(), part_i.data_ptr(),
         out_d.data_ptr(), out_i.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream,

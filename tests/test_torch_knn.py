@@ -14,6 +14,9 @@ The CUDA kernel's host-side launch geometry, and its algorithm (segment
 top-5 lists merged lexicographically) emulated in plain torch, are checked
 here too; the kernel itself runs in test_torch_cuda.py."""
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -201,6 +204,24 @@ def test_surf_correspondences_grid_match_jax(scans):
 
 # corner and surf capacities of the flagship mapping stage (HDL64_KITTI)
 FLAGSHIP = [(2048, 32768), (8192, 65536)]
+H100_SMS = 132
+
+
+def _knn_cu_constants() -> dict:
+    """The ``constexpr int`` constants of knn.cu, read from its source."""
+    src = (Path(ck.__file__).parent.parent / "csrc" / "knn.cu").read_text()
+    return {m[1]: int(m[2])
+            for m in re.finditer(r"constexpr int (\w+) = (\d+);", src)}
+
+
+def test_knn_host_constants_match_the_kernel_source():
+    """The wrapper's copies of knn.cu's constants equal the source's, and
+    the kernel's static shared memory (the float4 tile and QCAP (x, index)
+    queue slots per query) needs no opt-in above 48 KB."""
+    c = _knn_cu_constants()
+    assert c["QB"] == ck.QUERIES_PER_BLOCK
+    assert c["MAX_SEGMENTS"] == ck.MAX_SEGMENTS
+    assert 16 * c["TILE"] + 8 * c["QCAP"] * c["QB"] <= 48 * 1024
 
 
 @pytest.mark.parametrize("Q,N", FLAGSHIP)
@@ -210,31 +231,40 @@ def test_knn_geometry_covers_every_pair_once(Q, N, rc):
     references [s * length, min((s + 1) * length, rc)): each axis is covered
     once, so each pair of the live grid is."""
     g = ck.knn_geometry(Q, N)
-    rc = {"S-1": g.segments - 1, "tile+1": ck.TILE + 1, "N": N}.get(rc, rc)
+    tile = _knn_cu_constants()["TILE"]
+    rc = {"S-1": g.segments - 1, "tile+1": tile + 1, "N": N}.get(rc, rc)
     length = ck.segment_length(rc, g.segments)
     refs = np.zeros(rc, np.int64)
     for s in range(g.segments):
         lo = min(s * length, rc)
         refs[lo:min(lo + length, rc)] += 1
     rows = np.zeros(Q, np.int64)
+    qb = ck.QUERIES_PER_BLOCK
     for b in range(g.query_blocks):
-        rows[b * g.queries_per_block:(b + 1) * g.queries_per_block] += 1
+        rows[b * qb:(b + 1) * qb] += 1
     assert (refs == 1).all() and (rows == 1).all()
     if rc > (g.segments - 1) ** 2:
         # every segment holds live references
         assert (g.segments - 1) * length < rc
 
 
+@pytest.mark.parametrize("Q,N,blocks,segments", [
+    (1, 1, 1, 1), (128, 511, 1, 1), (129, 512, 2, 2), (300, 5000, 3, 16)])
+def test_knn_geometry_at_small_capacities(Q, N, blocks, segments):
+    """Segments: the largest power of two, at most MAX_SEGMENTS, that
+    leaves MIN_SEGMENT references each at capacity N."""
+    assert ck.knn_geometry(Q, N) == (blocks, segments)
+
+
 @pytest.mark.parametrize("Q,N", FLAGSHIP)
 def test_knn_geometry_fills_the_card(Q, N):
     g = ck.knn_geometry(Q, N)
-    assert g.blocks >= ck.H100_SMS
+    assert g.blocks >= H100_SMS
     # at the live counts the mapping stage hands over (chip_smoke phase 3's
     # "below": 5/8 of the queries), at least two blocks per SM stay live
     live_rows = Q * 5 // 8
-    assert -(-live_rows // g.queries_per_block) * g.segments >= 2 * ck.H100_SMS
-    # static shared memory, without opting in to more
-    assert g.smem_bytes <= 48 * 1024
+    assert (-(-live_rows // ck.QUERIES_PER_BLOCK) * g.segments
+            >= 2 * H100_SMS)
 
 
 def _split_knn5(query, ref, mask, qc, rc, segments):
