@@ -11,9 +11,10 @@ exception and a non-zero exit):
   3. knn5 vs its plain PyTorch version at the mapping stage's shapes; at
      the live counts the stage hands over, timed per call and per launch
      on the device, beside the least time the card could take (its bound);
-  4. compat_votes vs its plain PyTorch version at the odometry and mapping
-     vote shapes (R = 10, K = 163 and 829), timed per call and per launch
-     on the device, beside its bound;
+  4. compat_votes vs its plain PyTorch version at the odometry plane,
+     mapping and odometry corner vote shapes (R, K = 10, 163; 10, 829;
+     5, 158), timed per call and per launch on the device, beside its
+     bound;
   5. the flagship pipeline (HDL64_KITTI, full widths) over 12 synthetic
      frames on the card: kernel launch counts, finite poses, every mapped
      position within 5 cm of the JAX package's, per-stage device ms and
@@ -21,7 +22,16 @@ exception and a non-zero exit):
   6. the same with the mapping-stage vote on (``vote_mode="simple"``,
      ``vote_start_frame=2``) over 10 frames: compat_votes also runs at
      K = 829, twice per mapped frame; the same checks against the JAX
-     package's positions on that run.
+     package's positions on that run;
+  7. the latent Light-LOAM vote path over 10 frames: the full graph vote
+     for odometry planes (R = 10, K = 163) and in mapping (K = 829), the
+     simple corner vote (compat_votes at R = 5, K = 158) with scalar edge
+     factors, and the tiled surf search with its live-prefix hand-off; the
+     same checks, plus per-call times of the grid and the tiled surf
+     search on one flagship frame (ring-slotted and compacted) and of the
+     full graph vote at both shapes;
+  8. the distortion hook and the occlusion filter over 8 frames, the same
+     checks.
 
 The last three lines are a JSON object with each kernel's numbers, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -44,6 +54,7 @@ import time
 import numpy as np
 import torch
 
+from light_loam_tpu_torch.core.frame import PointCloud
 from light_loam_tpu_torch.models.pipeline import (
     PROFILES,
     Pipeline,
@@ -55,6 +66,13 @@ from light_loam_tpu_torch.ops.cuda_vote import (
     compat_votes,
     compat_votes_plain,
 )
+from light_loam_tpu_torch.ops.features import extract_features
+from light_loam_tpu_torch.ops.graphvote import full_graph_vote
+from light_loam_tpu_torch.ops.knn import (
+    surf_correspondences,
+    surf_correspondences_grid,
+)
+from light_loam_tpu_torch.ops.voxel import compact_rows
 
 # Mapped positions (m) of the JAX package's pipeline on the same run, on the
 # CPU, produced by:
@@ -97,6 +115,51 @@ JAX_VOTE_MAPPED_POSITIONS = np.array([
     [9.003265380859375, 0.18747785687446594, 0.004220140632241964],
 ])
 VOTE_N_FRAMES = 10
+# Phase 7: the JAX package's mapped positions (m) with the latent vote path
+# on (latent_vote_config), on the CPU, produced by:
+#   JAX_PLATFORMS=cpu python -c "import dataclasses as d; from
+#   light_loam_tpu.models import pipeline as pl; c = pl.PROFILES['hdl64'];
+#   pl.PROFILES['hdl64'] = d.replace(c, odometry=d.replace(c.odometry,
+#   plane_vote_mode='full', corner_vote_mode='simple', surf_knn='tiled',
+#   vote_start_frame=2), mapping=d.replace(c.mapping, vote_mode='full',
+#   vote_start_frame=2)); p, _, _ = pl.run_synthetic(n_frames=10,
+#   profile='hdl64', n_azimuth=1800, speed=1.0, seed=0);
+#   print(p.mapped_positions().tolist())"
+JAX_LATENT_MAPPED_POSITIONS = np.array([
+    [0.0, 0.0, 0.0],
+    [0.9995206594467163, 0.02170042134821415, 0.0015200147172436118],
+    [2.0035605430603027, 0.04235256090760231, 0.0016427640803158283],
+    [3.0104029178619385, 0.06938423961400986, 0.00238327425904572],
+    [4.012481689453125, 0.08986736834049225, 0.0009586483938619494],
+    [5.002170562744141, 0.11172167211771011, 0.0028385058976709843],
+    [6.014122486114502, 0.12751440703868866, 0.002082008868455887],
+    [7.021209716796875, 0.14669066667556763, 0.0023592133074998856],
+    [8.006645202636719, 0.1630980223417282, 0.003164654830470681],
+    [8.999643325805664, 0.1894472986459732, 0.005093296989798546],
+])
+LATENT_N_FRAMES = 10
+# Phase 8: the same with the distortion hook and the occlusion filter on
+# (undistort_config), produced by:
+#   JAX_PLATFORMS=cpu python -c "import dataclasses as d; from
+#   light_loam_tpu.models import pipeline as pl; c = pl.PROFILES['hdl64'];
+#   pl.PROFILES['hdl64'] = d.replace(c, odometry=d.replace(c.odometry,
+#   distortion=True), scan=d.replace(c.scan, occlusion_filter=True));
+#   p, _, _ = pl.run_synthetic(n_frames=8, profile='hdl64', n_azimuth=1800,
+#   speed=1.0, seed=0); print(p.mapped_positions().tolist())"
+# (the synthetic sweeps are taken at one instant, so the hook, which
+# assumes motion within the sweep, moves the trajectory off the truth; the
+# port must follow the JAX package there too)
+JAX_UNDISTORT_MAPPED_POSITIONS = np.array([
+    [0.0, 0.0, 0.0],
+    [1.7618637084960938, 0.005014745984226465, -0.0023605653550475836],
+    [2.292757749557495, 0.07567618787288666, 0.004451286979019642],
+    [3.553385019302368, 0.03607513755559921, -0.01872362568974495],
+    [4.325351715087891, 0.12659083306789398, 0.0261186882853508],
+    [5.5532050132751465, 0.0858931913971901, -0.03158432990312576],
+    [6.353050708770752, 0.15372329950332642, 0.05912912264466286],
+    [7.524198055267334, 0.14557182788848877, -0.10106147080659866],
+])
+UNDISTORT_N_FRAMES = 8
 POSITION_TOL_M = 0.05
 # knn5 distances: the Gram form |q|^2 + |r|^2 - 2 q.r rounds at the scale of
 # |q|^2 + |r|^2 (~2e4 m^2 at 100 m, where a float32 ulp is ~1e-3 m^2), not of
@@ -314,11 +377,15 @@ def phase_knn(dev) -> dict:
     return out
 
 
+# compat_votes shapes: odometry plane vote (1536 // 10 + 10), mapping vote
+# (8192 // 10 + 10), odometry corner vote (768 // 5 + 5)
+VOTE_SHAPES = ((10, 163), (10, 829), (5, 158))
+
+
 def phase_vote(dev) -> dict:
     out = {}
-    for K in (163, 829):
+    for R, K in VOTE_SHAPES:
         rng = np.random.default_rng(K)
-        R = 10
         src = rng.uniform(-20, 20, (R, K, 3)).astype(np.float32)
         bad = rng.random((R, K)) < 0.25
         tgt = src + 0.3 + np.where(bad[..., None],
@@ -335,24 +402,24 @@ def phase_vote(dev) -> dict:
         frac = (diff > 0).float().mean().item()
         if diff.max().item() > VOTE_MAX_DIFF or frac >= VOTE_MAX_FRAC:
             raise AssertionError(
-                f"compat_votes K={K}: max diff {diff.max().item()}, "
+                f"compat_votes R={R} K={K}: max diff {diff.max().item()}, "
                 f"differing fraction {frac}")
         kernel = functools.partial(compat_votes, src_t, tgt_t, val_t)
         plain = functools.partial(compat_votes_plain, src_t, tgt_t, val_t)
-        out[K] = dict(
+        v = out[(R, K)] = dict(
             err=diff.max().item(), frac=frac,
             ms=_median_ms(kernel, 50), plain_ms=_median_ms(plain, 20),
             device_ms=_device_ms(kernel, 100),
             plain_device_ms=_device_ms(plain, 20),
         )
-        out[K]["bound_ms"], out[K]["bound_by"] = vote_bound(R, K)
+        v["bound_ms"], v["bound_by"] = vote_bound(R, K)
     print("[4 vote] " + " | ".join(
-        f"R=10 K={K} max_abs_err={v['err']:.3g} differing={v['frac']:.4f} "
+        f"R={R} K={K} max_abs_err={v['err']:.3g} differing={v['frac']:.4f} "
         f"kernel {v['ms']:.4f} ms plain {v['plain_ms']:.4f} ms per call, "
         f"kernel {v['device_ms']:.4f} ms plain {v['plain_device_ms']:.4f} ms "
         f"per launch on the device, bound {v['bound_ms']:.4f} ms "
         f"({v['bound_by']}), {v['bound_ms'] / v['device_ms']:.1%} of the bound"
-        for K, v in out.items()))
+        for (R, K), v in out.items()))
     return out
 
 
@@ -362,6 +429,44 @@ def mapping_vote_config():
     base = PROFILES["hdl64"]
     return dataclasses.replace(base, mapping=dataclasses.replace(
         base.mapping, vote_mode="simple", vote_start_frame=2))
+
+
+def latent_vote_config(base=None):
+    """``base`` (the flagship profile by default) with the latent
+    Light-LOAM vote path on, gated on after frame 2: the full graph vote
+    for odometry planes and in mapping, the simple corner vote with scalar
+    edge factors, and the tiled surf search with its live-prefix
+    hand-off."""
+    base = base or PROFILES["hdl64"]
+    return dataclasses.replace(
+        base,
+        odometry=dataclasses.replace(
+            base.odometry, plane_vote_mode="full", corner_vote_mode="simple",
+            surf_knn="tiled", vote_start_frame=2),
+        mapping=dataclasses.replace(base.mapping, vote_mode="full",
+                                    vote_start_frame=2))
+
+
+def undistort_config():
+    """The flagship profile with the distortion hook and the occlusion
+    filter on."""
+    base = PROFILES["hdl64"]
+    return dataclasses.replace(
+        base, odometry=dataclasses.replace(base.odometry, distortion=True),
+        scan=dataclasses.replace(base.scan, occlusion_filter=True))
+
+
+def expected_launches(cfg, n_frames: int, n_mapped: int) -> dict:
+    """Launches a run makes, from its config.  compat_votes: one per
+    odometry outer iteration for each of the plane and corner votes in
+    "simple" mode, and one per mapping outer iteration in mapping "simple"
+    mode (all run before their gates open too; "full" launches none).
+    knn5: a corner and a surf 5-NN per mapping outer iteration."""
+    o, m = cfg.odometry, cfg.mapping
+    simple = (o.plane_vote_mode == "simple") + (o.corner_vote_mode == "simple")
+    votes = (simple * o.outer_iterations * n_frames
+             + (m.vote_mode == "simple") * m.outer_iterations * n_mapped)
+    return {"knn.cu": 2 * m.outer_iterations * n_mapped, "vote.cu": votes}
 
 
 def phase_pipeline(tag, cfg, n_frames, jax_positions, kernels) -> dict:
@@ -390,22 +495,11 @@ def phase_pipeline(tag, cfg, n_frames, jax_positions, kernels) -> dict:
     launches = {k.source.name: k.launches for k in kernels}
 
     n_mapped = sum(r.mapped for r in results)
-    # one vote per odometry outer iteration (6 per frame); a corner and a
-    # surf 5-NN per mapping outer iteration (4 per mapped frame); with the
-    # mapping vote on, one more vote per mapping outer iteration (2 per
-    # mapped frame, launched before vote_start_frame too)
-    votes_per_frame = cfg.odometry.outer_iterations
-    votes_per_mapped = (cfg.mapping.outer_iterations
-                        if cfg.mapping.vote_mode != "off" else 0)
-    knn_per_mapped = 2 * cfg.mapping.outer_iterations
-    want_votes = votes_per_frame * n_frames + votes_per_mapped * n_mapped
-    if launches["vote.cu"] != want_votes:
-        raise AssertionError(
-            f"vote launches {launches['vote.cu']} != {votes_per_frame} x "
-            f"{n_frames} frames + {votes_per_mapped} x {n_mapped} mapped")
-    if launches["knn.cu"] != knn_per_mapped * n_mapped:
-        raise AssertionError(f"knn launches {launches['knn.cu']} != "
-                             f"{knn_per_mapped} x {n_mapped} mapped frames")
+    want = expected_launches(cfg, n_frames, n_mapped)
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}, derived from "
+                             f"the config for {n_frames} frames, {n_mapped} "
+                             "mapped")
     for r in results:
         if not (np.isfinite(r.odom_q).all() and np.isfinite(r.odom_t).all()):
             raise AssertionError(f"frame {r.frame}: non-finite odometry pose")
@@ -420,14 +514,104 @@ def phase_pipeline(tag, cfg, n_frames, jax_positions, kernels) -> dict:
             f"{dev_m.max():.4f} m (> {POSITION_TOL_M} m): {dev_m.tolist()}")
     stages = {n: s.mean_ms for n, s in pipe.timers.device_report().items()}
     fps = (n_frames - 1) / (t_end - t1)
-    print(f"[{tag}] hdl64 {n_frames} frames, {n_mapped} mapped, mapping "
-          f"vote {cfg.mapping.vote_mode} | launches {launches} | max "
+    o = cfg.odometry
+    print(f"[{tag}] hdl64 {n_frames} frames, {n_mapped} mapped, votes "
+          f"plane {o.plane_vote_mode} corner {o.corner_vote_mode} mapping "
+          f"{cfg.mapping.vote_mode}, surf search {o.surf_knn}, distortion "
+          f"{o.distortion}, occlusion filter {cfg.scan.occlusion_filter} | "
+          f"launches {launches} | max "
           f"|mapped - jax| {dev_m.max():.4f} m | "
           + " ".join(f"{n} {ms:.2f}ms" for n, ms in sorted(stages.items()))
           + f" (stream, mean of frames 2-{n_frames}) | {fps:.2f} frames/s "
           f"(host wall, frames 2-{n_frames}; first frame "
           f"{(t1 - t0) * 1e3:.0f} ms)")
     return dict(launches=launches, stages=stages)
+
+
+FULL_VOTE_SHAPES = ((10, 163), (10, 829))
+
+
+def full_vote_floor(R: int, K: int) -> float:
+    """Least ms of full_graph_vote on the card: its two batched (R, K, K)
+    triangle products, 2 R K³ FLOP each, at the FP32 peak (the rest of the
+    vote is elementwise work on (R, K, K) buffers, not counted)."""
+    return 2 * 2 * R * K ** 3 / H100_FP32_FLOPS * 1e3
+
+
+def _matched_points_differ(g, ref, t, compact) -> int:
+    """Queries where the grid search on ``ref`` and the tiled search on
+    ``compact`` disagree on validity or on a matched point."""
+    differ = g.valid != t.valid
+    for gi, ti in ((g.a_idx, t.a_idx), (g.b_idx, t.b_idx), (g.c_idx, t.c_idx)):
+        differ |= g.valid & (ref.xyz[gi] != compact.xyz[ti]).any(-1)
+    return int(differ.sum())
+
+
+def phase_latent_calls(dev) -> dict:
+    """Per-call ms of phase 7's surf searches on one flagship frame (the
+    flat cloud of frame 1 against the less-flat cloud of frame 0: the grid
+    search and the tiled one on the ring-slotted cloud, the tiled one with
+    the live count on its compacted copy) and of full_graph_vote at the
+    odometry plane and mapping shapes."""
+    cfg = latent_vote_config()
+    o = cfg.odometry
+    feats = [extract_features(torch.as_tensor(xyz).to(dev),
+                              torch.as_tensor(mask).to(dev), cfg.scan)
+             for _, xyz, mask in synthetic_frames(2, cfg, seed=0)]
+    ref, n_rings = feats[0].less_flat, feats[0].full.xyz.shape[0]
+    km, kx, kr = compact_rows(ref.mask, ref.capacity, ref.xyz, ref.rel)
+    compact = PointCloud(kx, kr, km)
+    n_live = int(km.sum())
+    q, qm = feats[1].flat.xyz, feats[1].flat.mask
+    gate = (o.distance_sq_threshold, o.nearby_scan)
+    calls = {
+        "grid": functools.partial(surf_correspondences_grid, q, qm, ref,
+                                  n_rings, *gate),
+        "tiled": functools.partial(surf_correspondences, q, qm, ref, *gate),
+        "tiled_compacted": functools.partial(
+            surf_correspondences, q, qm, compact, *gate, ref_count=n_live),
+    }
+    differ = _matched_points_differ(calls["grid"](), ref,
+                                    calls["tiled_compacted"](), compact)
+    n_valid = int(calls["grid"]().valid.sum())
+    if differ > 0.001 * q.shape[0] or n_valid < 0.5 * int(qm.sum()):
+        raise AssertionError(f"surf searches: grid and tiled differ at {differ}"
+                             f" queries ({n_valid} valid)")
+    out = dict(Q=q.shape[0], capacity=ref.capacity, n_live=n_live,
+               live_tiles=-(-n_live // 8192), tiles=-(-ref.capacity // 8192),
+               differ=differ, surf={n: _median_ms(f, 20)
+                                    for n, f in calls.items()})
+    out["vote"] = {}
+    for R, K in FULL_VOTE_SHAPES:
+        rng = np.random.default_rng(K)
+        n = (K - R) * R
+        src = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
+        tgt = src + np.array([0.6, 0.1, -0.05], np.float32) + rng.normal(
+            0, 0.05, (n, 3)).astype(np.float32)
+        bad = rng.random(n) < 1 / 6
+        tgt[bad] += rng.uniform(2, 6, (bad.sum(), 3)).astype(np.float32)
+        args = [torch.as_tensor(a).to(dev) for a in
+                (src, tgt.astype(np.float32), rng.random(n) < 0.92)]
+        fn = functools.partial(full_graph_vote, *args, n_regions=R,
+                               chunk_capacity=K)
+        sel = fn().selected
+        if not 0.5 * int(args[2].sum()) < int(sel.sum()) < int(args[2].sum()):
+            raise AssertionError(f"full_graph_vote R={R} K={K}: {int(sel.sum())}"
+                                 " selected")
+        out["vote"][(R, K)] = dict(ms=_median_ms(fn, 10),
+                                   device_ms=_device_ms(fn, 2),
+                                   floor_ms=full_vote_floor(R, K))
+    print("[7 latent vote] surf search per call (host included), flat Q="
+          f"{out['Q']} vs less-flat capacity {out['capacity']}, {n_live} live"
+          f": grid {out['surf']['grid']:.3f} ms | tiled {out['surf']['tiled']:.3f}"
+          f" ms ({out['tiles']} tiles) | tiled compacted "
+          f"{out['surf']['tiled_compacted']:.3f} ms ({out['live_tiles']} live "
+          f"tiles, count read once) | grid vs tiled differ at {differ} queries"
+          " | " + " | ".join(
+              f"full_graph_vote R={R} K={K} {v['ms']:.3f} ms per call, "
+              f"{v['device_ms']:.3f} ms on the device, FP32 floor "
+              f"{v['floor_ms']:.4f} ms" for (R, K), v in out["vote"].items()))
+    return out
 
 
 def main() -> int:
@@ -444,10 +628,20 @@ def main() -> int:
     print(f"[6 mapping vote] mapping stage {p6['stages']['mapping']:.2f} ms "
           f"per frame with the vote, {p5['stages']['mapping']:.2f} ms without "
           "(phase 5)")
-    launches = {name: p5["launches"][name] + p6["launches"][name]
+    p7 = phase_pipeline("7 latent vote", latent_vote_config(),
+                        LATENT_N_FRAMES, JAX_LATENT_MAPPED_POSITIONS, kernels)
+    print("[7 latent vote] stream ms per frame against phase 5: " + " ".join(
+        f"{n} {p7['stages'][n]:.2f} ({p5['stages'][n]:.2f})"
+        for n in sorted(p7["stages"])))
+    phase_latent_calls(dev)
+    p8 = phase_pipeline("8 undistort + occlusion", undistort_config(),
+                        UNDISTORT_N_FRAMES, JAX_UNDISTORT_MAPPED_POSITIONS,
+                        kernels)
+    launches = {name: sum(p["launches"][name] for p in (p5, p6, p7, p8))
                 for name in p5["launches"]}
 
     surf = knn[("surf", "below")]
+    odo = vote[VOTE_SHAPES[0]]
     knn_err = max(v["err"] for v in knn.values())
     print(json.dumps({"kernels": [
         {"name": "knn5", "route": "cuda",
@@ -467,16 +661,15 @@ def main() -> int:
          "replaces": "light_loam_tpu/ops/pallas_vote.py:33",
          "launches": launches["vote.cu"],
          "max_abs_err": max(v["err"] for v in vote.values()),
-         "ms": vote[163]["ms"], "plain_ms": vote[163]["plain_ms"],
-         "device_ms": vote[163]["device_ms"],
-         "bound_ms": vote[163]["bound_ms"],
-         "bound_by": vote[163]["bound_by"], "library_ms": None,
+         "ms": odo["ms"], "plain_ms": odo["plain_ms"],
+         "device_ms": odo["device_ms"], "bound_ms": odo["bound_ms"],
+         "bound_by": odo["bound_by"], "library_ms": None,
          "shapes": [
-             {"R": 10, "K": K, "max_abs_err": v["err"], "ms": v["ms"],
+             {"R": R, "K": K, "max_abs_err": v["err"], "ms": v["ms"],
               "plain_ms": v["plain_ms"], "device_ms": v["device_ms"],
               "plain_device_ms": v["plain_device_ms"],
               "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
-             for K, v in vote.items()]},
+             for (R, K), v in vote.items()]},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

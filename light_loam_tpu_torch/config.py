@@ -185,9 +185,8 @@ class OdometryConfig:
     # Surf correspondence kernel.  "grid": single-pass search exploiting
     # the less-flat cloud's ring-slotted layout (half the matmul cost,
     # exact same semantics — ops/knn.py surf_correspondences_grid).
-    # "tiled": the layout-agnostic two-pass search.  In the port
-    # "auto"/"grid" run the grid search; "tiled" raises
-    # NotImplementedError (not ported yet).
+    # "tiled": the layout-agnostic two-pass search over the live-prefix
+    # compacted cloud.  In the port "auto" runs the grid search.
     surf_knn: str = "auto"
 
 

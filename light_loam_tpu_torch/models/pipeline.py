@@ -43,7 +43,7 @@ from light_loam_tpu_torch.models.odometry import (
     check_odometry_config,
     odometry_step,
 )
-from light_loam_tpu_torch.ops.features import extract_features
+from light_loam_tpu_torch.ops.features import check_scan_config, extract_features
 from light_loam_tpu_torch.ops.voxel import voxel_downsample
 from light_loam_tpu_torch.utils.timing import StageTimers
 
@@ -97,6 +97,7 @@ class Pipeline:
         if self.cfg.fused_step:
             raise NotImplementedError(
                 "PipelineConfig.fused_step=True is not ported to PyTorch yet")
+        check_scan_config(self.cfg.scan)
         check_odometry_config(self.cfg.odometry)
         check_mapping_config(self.cfg.mapping)
         scan = self.cfg.scan

@@ -25,6 +25,7 @@ handful of small kernels: on a GPU this stage is bound by launches.
 from __future__ import annotations
 
 import math
+from typing import Optional
 
 import torch
 
@@ -175,8 +176,49 @@ def _suppression_mask(col_ids, cand, ok_plus, ok_minus, cfg: ScanConfig):
     return m
 
 
-def select_features(grid: RangeImage, curv: torch.Tensor, cfg: ScanConfig):
+def occlusion_mask(grid: RangeImage, cfg: ScanConfig) -> torch.Tensor:
+    """Unreliable-point mask: shadow boundaries and parallel beams
+    (original LOAM §V-A; an accuracy extension over the reference, see
+    ScanConfig.occlusion_filter).
+
+    Returns (R, H) bool, True = suppress.  Across a range discontinuity
+    between columns i and i+1 the FARTHER side's window is suppressed (its
+    points sit on an occlusion boundary that moves with parallax); beams
+    grazing a surface (both neighbour gaps large relative to the range)
+    are suppressed as unstable."""
+    r = torch.sqrt(torch.sum(grid.xyz * grid.xyz, dim=-1))
+    r = torch.where(grid.mask, r, torch.zeros((), device=r.device))
+    R, H = r.shape
+    nxt = torch.cat([r[:, 1:], r[:, -1:]], dim=1)
+    both = grid.mask & torch.cat(
+        [grid.mask[:, 1:], torch.zeros_like(grid.mask[:, :1])], dim=1)
+    # trigger at column i about the (i, i+1) pair
+    far_here = both & (r - nxt > cfg.occlusion_gap)   # i is farther
+    far_next = both & (nxt - r > cfg.occlusion_gap)   # i+1 is farther
+
+    pad = cfg.occlusion_radius
+    fh = torch.nn.functional.pad(far_here, (0, pad))
+    fn = torch.nn.functional.pad(far_next, (pad + 1, 0))
+    sup = torch.zeros_like(grid.mask)
+    for l in range(pad + 1):
+        # far_here at i suppresses i-l; far_next at i suppresses i+1+l
+        sup = sup | fh[:, l:l + H] | fn[:, pad - l:pad - l + H]
+
+    prv = torch.cat([r[:, :1], r[:, :-1]], dim=1)
+    parallel = (
+        grid.mask
+        & ((r - prv).abs() > cfg.parallel_beam_ratio * r)
+        & ((nxt - r).abs() > cfg.parallel_beam_ratio * r)
+    )
+    return sup | parallel
+
+
+def select_features(grid: RangeImage, curv: torch.Tensor, cfg: ScanConfig,
+                    pre_suppressed: Optional[torch.Tensor] = None):
     """Greedy per-sector classification (src/scanRegistration.cpp:246-368).
+
+    ``pre_suppressed`` (R, H) marks points excluded before any pick (the
+    occlusion filter); they behave like already-picked neighbours.
 
     Returns (label, order_key) over the grid:
       label: 2 sharp, 1 less-sharp, -1 flat, 0 untouched (int8)
@@ -195,6 +237,8 @@ def select_features(grid: RangeImage, curv: torch.Tensor, cfg: ScanConfig):
     ring_active = seg_len >= cfg.n_sectors
 
     picked = ~grid.mask
+    if pre_suppressed is not None:
+        picked = picked | pre_suppressed
     label = torch.zeros((R, H), dtype=torch.int8, device=dev)
     okey = torch.full((R, H), _INT32_MAX, dtype=torch.int32, device=dev)
 
@@ -266,21 +310,26 @@ def _compact_selected(grid: RangeImage, sel, okey, capacity: int) -> PointCloud:
     )
 
 
+def check_scan_config(cfg: ScanConfig) -> None:
+    """Raise for the less-flat mode this port does not implement ("runs",
+    a TPU workaround) and for an unknown one."""
+    if cfg.lessflat_mode == "runs":
+        raise NotImplementedError(
+            "ScanConfig.lessflat_mode='runs' is not ported; use 'exact'")
+    if cfg.lessflat_mode != "exact":
+        raise ValueError(
+            f"unknown ScanConfig.lessflat_mode={cfg.lessflat_mode!r}")
+
+
 def extract_features(
     xyz: torch.Tensor, mask: torch.Tensor, cfg: ScanConfig
 ) -> ScanFeatures:
     """Full feature-extraction stage for one frame.
 
     xyz: (max_points, 3) raw sensor points; mask: validity of each slot.
-    Only the JAX package's default path is ported: the occlusion filter
-    and the "runs" less-flat mode raise NotImplementedError."""
-    if cfg.occlusion_filter:
-        raise NotImplementedError(
-            "ScanConfig.occlusion_filter is not ported to PyTorch yet")
-    if cfg.lessflat_mode != "exact":
-        raise NotImplementedError(
-            f"ScanConfig.lessflat_mode={cfg.lessflat_mode!r} is not ported; "
-            "use 'exact'")
+    The "runs" less-flat mode (a TPU workaround) raises
+    NotImplementedError."""
+    check_scan_config(cfg)
     finite = torch.isfinite(xyz).all(dim=-1)
     r2 = xyz[:, 0] * xyz[:, 0] + xyz[:, 1] * xyz[:, 1] + xyz[:, 2] * xyz[:, 2]
     in_mask = mask & finite & (r2 >= cfg.minimum_range ** 2)
@@ -291,7 +340,8 @@ def extract_features(
 
     grid = build_range_image(xyz, rel, ring, ring_ok, cfg)
     curv = compute_curvature(grid.xyz)
-    label, okey = select_features(grid, curv, cfg)
+    occluded = occlusion_mask(grid, cfg) if cfg.occlusion_filter else None
+    label, okey = select_features(grid, curv, cfg, pre_suppressed=occluded)
 
     sharp = _compact_selected(grid, label == 2, okey, cfg.max_sharp)
     less_sharp = _compact_selected(grid, label >= 1, okey, cfg.max_less_sharp)
@@ -309,6 +359,8 @@ def extract_features(
         & (col_ids <= (counts - 7)[:, None])
     )
     lf_sel = band & (label <= 0) & grid.mask
+    if occluded is not None:
+        lf_sel = lf_sel & ~occluded
     lf_xyz, lf_rel, lf_mask = voxel_downsample_rings(
         grid.xyz, grid.rel, lf_sel, cfg.less_flat_leaf,
         cfg.max_less_flat // cfg.n_scans,

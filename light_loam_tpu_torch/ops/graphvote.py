@@ -12,8 +12,17 @@ incompatible pair (score < threshold) adds one vote against both ends;
 correspondences with votes ≤ 0.9·chunk_size survive, weighted 5.0 when
 votes ≤ 50 else 1.0.  The counts come from ``ops/cuda_vote.py``.
 
-The paper's full graph pipeline (``full_graph_vote``) is not ported yet:
-``run_vote("full", ...)`` raises NotImplementedError.
+``full_graph_vote`` is the paper's full pipeline, latent in the reference
+(graph_construction_partial + graph_based_correspondence_vote_partial,
+src/laserMapping.cpp:261-834): per-vertex degree over a 0.95-thresholded
+adjacency, first-order reliability as the mean geometric-mean triangle
+weight, an adaptive threshold, neighbour pruning, then a 0.1·loose +
+0.9·tight score.  The reference's tight pass computes ``pow(x, 1/3)`` with
+INTEGER 1/3 == 0 (laserMapping.cpp:597); like the JAX package this takes
+the intended cube root of the first-order pass (laserMapping.cpp:457),
+the deviation PARITY.md documents.  Its triangle sums are batched
+(R, K, K) products in full float32 (torch.bmm; TF32 is off
+package-wide), as they are XLA einsums in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,7 +31,15 @@ from typing import NamedTuple, Tuple
 
 import torch
 
-from light_loam_tpu_torch.ops.cuda_vote import compat_votes, compat_votes_plain
+from light_loam_tpu_torch.ops.cuda_vote import (
+    compat_scores,
+    compat_votes,
+    compat_votes_plain,
+)
+
+
+# the vote modes run_vote dispatches on
+VOTE_MODES = ("off", "simple", "full")
 
 
 def _chunk_layout(valid: torch.Tensor, n_regions: int):
@@ -152,6 +169,114 @@ def run_vote(
         )
         return v.selected, v.weight
     if mode == "full":
-        raise NotImplementedError(
-            "vote mode 'full' (full_graph_vote) is not ported to PyTorch yet")
+        v = full_graph_vote(
+            src, tgt, valid,
+            n_regions=n_regions, chunk_capacity=chunk_capacity,
+            resolution=resolution,
+        )
+        return v.selected, v.score
     raise ValueError(f"unknown vote mode: {mode}")
+
+
+class FullVoteResult(NamedTuple):
+    selected: torch.Tensor  # (Q,) bool
+    score: torch.Tensor     # (Q,) float reliability in [0, 1]
+    degree: torch.Tensor    # (Q,) pruned degree
+
+
+def cube_root(x: torch.Tensor) -> torch.Tensor:
+    """Cube root of x ≥ 0 in x's dtype, rounded once.  torch has no cbrt,
+    and float32 ``pow(x, 1/3)`` (an exponent of 0.33333334) is off by up
+    to 15 ulp at tiny x, as XLA's CPU cbrt is (tests/test_torch_vote.py
+    ``test_cube_root_rounds_once``).  Through float64 the exponent's error
+    is below 2e-15 relative for any float32 x."""
+    return x.double().pow(1.0 / 3.0).to(x.dtype)
+
+
+def _triangle_sums(B: torch.Tensor, G3: torch.Tensor) -> torch.Tensor:
+    """½ · rowsum(B ⊙ (B @ G^⅓)) = Σ_{j<k∈N(i)} (G_ij G_ik G_jk)^⅓ per row,
+    B the adjacency-masked cube-root weights."""
+    return 0.5 * torch.bmm(B, G3).mul_(B).sum(-1)
+
+
+def full_graph_vote(
+    src: torch.Tensor,
+    tgt: torch.Tensor,
+    valid: torch.Tensor,
+    n_regions: int,
+    chunk_capacity: int,
+    edge_threshold: float = 0.95,
+    resolution: float = 1.0,
+    weight_balance: float = 0.9,
+) -> FullVoteResult:
+    """The paper's full reliability pipeline (laserMapping.cpp:321-834).
+
+    Four (R, K, K) float32 buffers live at once: G, G^⅓, the masked
+    weights B and one product.  The adjacency A = G > edge_threshold is
+    never stored as floats: B = A ⊙ G^⅓ is pruned in place, and the pruned
+    degree and loose sums are masked reductions."""
+    K = chunk_capacity
+    rank, chunk_id, offset, n_valid, base = _chunk_layout(valid, n_regions)
+    in_chunk = valid & (offset < K)
+
+    csrc = _scatter_chunks(src, in_chunk, chunk_id, offset, n_regions, K)
+    ctgt = _scatter_chunks(tgt, in_chunk, chunk_id, offset, n_regions, K)
+    cval = _scatter_chunks(in_chunk.to(torch.float32), in_chunk, chunk_id,
+                           offset, n_regions, K)
+
+    # zero diagonal and padding, like setZero + the skipped self pair
+    G = compat_scores(csrc, ctgt, resolution)
+    G.mul_(cval[:, :, None]).mul_(cval[:, None, :])
+    G.diagonal(dim1=1, dim2=2).zero_()
+
+    # chunk connectivity guard (laserMapping.cpp:392-396)
+    connected = (G * G).sum(dim=(1, 2)) > 0                      # (R,)
+
+    adj = G > edge_threshold
+    degree = adj.sum(-1, dtype=torch.float32)                    # (R, K)
+    G3 = cube_root(G)
+    B = torch.where(adj, G3, torch.zeros((), device=G.device))
+    tri = _triangle_sums(B, G3)
+
+    denom = degree * (degree - 1.0) * 0.5
+    has_tri = degree > 1.0
+    zero = torch.zeros((), device=G.device)
+    first_order = torch.where(has_tri, tri / torch.clamp(denom, min=1.0), zero)
+
+    # adaptive threshold: min(global ratio, mean score) (laserMapping.cpp:490-492)
+    num_a = torch.where(has_tri, tri, zero).sum(-1)
+    den_a = torch.where(has_tri, denom, zero).sum(-1)
+    param_a = num_a / torch.clamp(den_a, min=1e-12)
+    n_in_chunk = torch.clamp(cval.sum(-1), min=1.0)
+    param_b = first_order.sum(-1) / n_in_chunk
+    threshold = torch.minimum(param_a, param_b)[:, None]         # (R, 1)
+
+    # prune neighbours whose first-order score is below the threshold
+    keep = (first_order >= threshold).to(G.dtype)[:, None, :]    # (R, 1, K)
+    B.mul_(keep)                                                  # A2 ⊙ G^⅓
+    pruned = adj & (keep > 0)
+    deg2 = pruned.sum(-1, dtype=torch.float32)
+
+    # loose = mean kept-neighbour edge weight; tight = mean kept-triangle
+    # geometric mean, only where the pruned degree > 2
+    # (laserMapping.cpp:581-611)
+    tri2 = _triangle_sums(B, G3)
+    del B, G3
+    # integer division in the reference: deg*(deg-2)/2, truncated
+    tight_den = torch.floor(deg2 * (deg2 - 2.0) / 2.0)
+    loose = torch.where(pruned, G, zero).sum(-1) / torch.clamp(deg2, min=1.0)
+    big_enough = deg2 > 2.0
+    tight = torch.where(big_enough, tri2 / torch.clamp(tight_den, min=1.0),
+                        zero)
+    loose = torch.where(big_enough & (deg2 > 0), loose, zero)
+
+    score_chunk = (1.0 - weight_balance) * loose + weight_balance * tight
+    score_chunk = score_chunk * connected[:, None].to(G.dtype)
+    sel_chunk = (score_chunk != 0.0) & (cval > 0)
+
+    flat_idx = torch.where(in_chunk, chunk_id * K + offset,
+                           torch.zeros_like(chunk_id))
+    selected = in_chunk & sel_chunk.reshape(-1)[flat_idx]
+    score = torch.where(in_chunk, score_chunk.reshape(-1)[flat_idx], zero)
+    deg_out = torch.where(in_chunk, deg2.reshape(-1)[flat_idx], zero)
+    return FullVoteResult(selected=selected, score=score, degree=deg_out)

@@ -15,12 +15,15 @@ membership on a ring-sorted array):
   * surf 3rd point: nearest point on a different ring within NEARBY_SCAN.
 
 All gated by DISTANCE_SQ_THRESHOLD = 25 (laserOdometry.cpp:29).  The
-mapping stage's 5-NN lives in ``ops/cuda_knn.py`` beside its kernel.
+surf search comes in two forms: ``surf_correspondences_grid`` for the
+ring-slotted less-flat layout (one pass), and the layout-agnostic
+two-pass ``surf_correspondences`` over reference tiles.  The mapping
+stage's 5-NN lives in ``ops/cuda_knn.py`` beside its kernel.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import torch
 
@@ -81,6 +84,77 @@ def corner_correspondences(
     d2, b_idx = _masked_min(d, window)
     valid = query_mask & (d1 < dist_sq_threshold) & (d2 < dist_sq_threshold)
     return CornerMatches(a_idx=a_idx, b_idx=b_idx, valid=valid)
+
+
+def surf_correspondences(
+    query_xyz: torch.Tensor,
+    query_mask: torch.Tensor,
+    ref: PointCloud,
+    dist_sq_threshold: float = 25.0,
+    nearby_scan: float = 2.5,
+    tile: int = 8192,
+    ref_count: Optional[int] = None,
+) -> SurfMatches:
+    """Planar-triangle correspondences (laserOdometry.cpp:653-737) over
+    the surf reference in ``tile``-row chunks: a 1-NN pass, then a pass for
+    the same-ring 2nd and the cross-ring 3rd point (pass 2's ring classes
+    depend on pass 1's argmin).  Ties go to the first index.
+
+    ``ref_count`` (a host int) asserts that every live reference row lies
+    in the prefix [0, ref_count) (a compacted cloud, ``ops.voxel.
+    compact_rows``); both passes then visit only ceil(ref_count / tile)
+    tiles.  Exact: a skipped tile is all masked and can never win a min.
+    The trip count is a host int, so the loops never wait on the device."""
+    Q = query_xyz.shape[0]
+    N = ref.capacity
+    dev = query_xyz.device
+    ring = ref.ring()
+    n_tiles = -(-N // tile)
+    n_live = n_tiles if ref_count is None else min(-(-ref_count // tile),
+                                                   n_tiles)
+    bounds = [(i * tile, min((i + 1) * tile, N)) for i in range(n_live)]
+
+    # ---- pass 1: plain 1-NN over tiles ----
+    d1 = torch.full((Q,), BIG, device=dev)
+    a_idx = torch.zeros(Q, dtype=torch.int64, device=dev)
+    for lo, hi in bounds:
+        d = pairwise_sq_dist(query_xyz, ref.xyz[lo:hi])
+        dv, di = _masked_min(d, ref.mask[None, lo:hi])
+        upd = dv < d1
+        a_idx = torch.where(upd, di + lo, a_idx)
+        d1 = torch.where(upd, dv, d1)
+    ring_a = ring[a_idx]
+
+    # ---- pass 2: same-ring 2nd and cross-ring 3rd points ----
+    d2 = torch.full((Q,), BIG, device=dev)
+    d3 = torch.full((Q,), BIG, device=dev)
+    b_idx = torch.zeros(Q, dtype=torch.int64, device=dev)
+    c_idx = torch.zeros(Q, dtype=torch.int64, device=dev)
+    for lo, hi in bounds:
+        d = pairwise_sq_dist(query_xyz, ref.xyz[lo:hi])
+        cmask = ref.mask[None, lo:hi]
+        ring_diff = ring[None, lo:hi] - ring_a[:, None]
+        not_self = (torch.arange(lo, hi, device=dev)[None, :]
+                    != a_idx[:, None])
+        same = cmask & not_self & (ring_diff == 0)
+        adj = (cmask & (ring_diff != 0)
+               & (ring_diff.abs().to(torch.float32) <= nearby_scan))
+        dv2, di2 = _masked_min(d, same)
+        dv3, di3 = _masked_min(d, adj)
+        u2 = dv2 < d2
+        u3 = dv3 < d3
+        d2 = torch.where(u2, dv2, d2)
+        b_idx = torch.where(u2, di2 + lo, b_idx)
+        d3 = torch.where(u3, dv3, d3)
+        c_idx = torch.where(u3, di3 + lo, c_idx)
+
+    valid = (
+        query_mask
+        & (d1 < dist_sq_threshold)
+        & (d2 < dist_sq_threshold)
+        & (d3 < dist_sq_threshold)
+    )
+    return SurfMatches(a_idx=a_idx, b_idx=b_idx, c_idx=c_idx, valid=valid)
 
 
 def surf_correspondences_grid(

@@ -22,17 +22,28 @@ from light_loam_tpu_torch.solver import residuals as res
 
 
 class FactorSet(NamedTuple):
-    """The factor families of one solve; any entry may be None."""
+    """The factor families of one solve; any entry may be None.
+
+    edge/plane/plane_norm are the live-path families; edge_scalar,
+    plane_component and distance are the reference's latent factor types
+    (see solver.residuals)."""
 
     edge: Optional[res.EdgeFactors] = None
     plane: Optional[res.PlaneFactors] = None
     plane_norm: Optional[res.PlaneNormFactors] = None
+    edge_scalar: Optional[res.EdgeScalarFactors] = None
+    plane_component: Optional[res.PlaneComponentFactors] = None
+    distance: Optional[res.DistanceFactors] = None
 
 
+# (field name, residual fn) registry driving the accumulation loops
 _FAMILIES = (
     ("edge", res.edge_residuals),
     ("plane", res.plane_residuals),
     ("plane_norm", res.plane_norm_residuals),
+    ("edge_scalar", res.edge_scalar_residuals),
+    ("plane_component", res.plane_component_residuals),
+    ("distance", res.distance_residuals),
 )
 
 

@@ -82,12 +82,13 @@ def test_cuda_pipeline_raises_without_cuda(monkeypatch):
 
 @pytest.mark.parametrize("section,field,value,error", [
     (None, "fused_step", True, NotImplementedError),
-    ("odometry", "surf_knn", "tiled", NotImplementedError),
-    ("odometry", "corner_vote_mode", "simple", NotImplementedError),
-    ("odometry", "distortion", True, NotImplementedError),
+    ("scan", "lessflat_mode", "runs", NotImplementedError),
+    ("odometry", "plane_vote_mode", "bogus", ValueError),
+    ("mapping", "vote_mode", "bogus", ValueError),
     ("mapping", "knn_k", 4, ValueError),
 ])
 def test_unported_options_raise(section, field, value, error):
+    """Refused when the Pipeline is built, before any frame."""
     cfg = torch_pipeline.PROFILES["hdl64-small"]
     if section is None:
         cfg = dataclasses.replace(cfg, **{field: value})

@@ -18,15 +18,22 @@ Votes compare rounded scores with 0.96, so a borderline pair may flip: at
 most 1 per row and under 1 % of rows differ (tests/test_pallas_vote.py's
 own tolerance).  Against float64 truth, a row's count may differ only by
 its pairs whose float64 score lies within the float32 rounding bound of
-the threshold (see ``votes_f64``).
+the threshold (see ``votes_f64``).  The full graph vote on the card is held
+to the same call on CPU tensors, and the tiled surf search to the grid
+search, by the same float64 rules (``full_vote_margins``); the pipeline's
+launch counts are derived from its config (``chip_smoke.expected_launches``)
+with the vote path off and with the latent vote path on.
 """
 
+import dataclasses
 import math
 
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import expected_launches, latent_vote_config
+from light_loam_tpu_torch.core.frame import PointCloud
 from light_loam_tpu_torch.models import pipeline as tpl
 from light_loam_tpu_torch.ops import cuda_build
 from light_loam_tpu_torch.ops.cuda_knn import (
@@ -41,7 +48,13 @@ from light_loam_tpu_torch.ops.cuda_vote import (
     compat_votes,
     compat_votes_plain,
 )
-from light_loam_tpu_torch.ops.graphvote import simple_vote
+from light_loam_tpu_torch.ops.graphvote import full_graph_vote, simple_vote
+from light_loam_tpu_torch.ops.knn import (
+    surf_correspondences,
+    surf_correspondences_grid,
+)
+from light_loam_tpu_torch.ops.voxel import compact_rows
+from light_loam_tpu_torch.utils.synthetic import World, simulate_scan
 
 torch.set_num_threads(2)
 
@@ -183,8 +196,8 @@ def test_knn5_refuses_bad_inputs(cuda):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,K", [(10, 163), (10, 829), (3, 300), (1, 1),
-                                 (2, 7000)])  # 7000: j tiles stream
+@pytest.mark.parametrize("R,K", [(10, 163), (10, 829), (5, 158), (3, 300),
+                                 (1, 1), (2, 7000)])  # 7000: j tiles stream
 def test_compat_votes_kernel_matches_plain(cuda, R, K):
     rng = np.random.default_rng(K)
     src = rng.uniform(-20, 20, (R, K, 3)).astype(np.float32)
@@ -241,7 +254,7 @@ def votes_f64(src, tgt, valid, threshold):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("R,K", [(10, 163), (10, 829), (2, 7000)])
+@pytest.mark.parametrize("R,K", [(10, 163), (10, 829), (5, 158), (2, 7000)])
 def test_compat_votes_kernel_matches_float64_truth(cuda, R, K):
     """Gaps spread around the threshold's (0.2 m): every count equals the
     float64 count up to the row's pairs within rounding of the threshold."""
@@ -265,6 +278,91 @@ def test_compat_votes_kernel_matches_float64_truth(cuda, R, K):
     assert n_near > 0.01 * pairs and n_loose < 1e-3 * pairs, (n_near, n_loose)
 
 
+# Full vote decisions taken in float32 (G > 0.95, first-order ≥ the
+# adaptive threshold) may flip where float64 truth puts them within the
+# float32 rounding of their threshold: G carries the Gram-form rounding of
+# the distances (|gap| error ~1e-4 at 40 m coordinates, so ~1e-4 in G), and
+# first-order scores average cube roots of such G.
+DECISION_TOL = 2e-4
+
+
+def full_vote_margins(src, tgt, n_regions, edge_threshold=0.95):
+    """Per compacted entry, in float64 over the reference's contiguous
+    chunks: the smallest distance of a decision that feeds its score to its
+    threshold (its edges to 0.95, its own and its neighbours' first-order
+    scores to the chunk's adaptive threshold)."""
+    src = np.asarray(src, np.float64)
+    tgt = np.asarray(tgt, np.float64)
+    n = len(src)
+    margin = np.full(n, np.inf)
+    for c in range(n_regions):
+        lo = n // n_regions * c
+        hi = n if c == n_regions - 1 else n // n_regions * (c + 1)
+        if hi <= lo:
+            continue
+        ds = np.linalg.norm(src[lo:hi, None] - src[None, lo:hi], axis=-1)
+        dt = np.linalg.norm(tgt[lo:hi, None] - tgt[None, lo:hi], axis=-1)
+        G = np.exp(-(ds - dt) ** 2)
+        np.fill_diagonal(G, 0.0)
+        A = G > edge_threshold
+        deg = A.sum(1)
+        G3 = np.cbrt(G)
+        B = A * G3
+        tri = 0.5 * (B * (B @ G3)).sum(1)
+        den = deg * (deg - 1) * 0.5
+        fo = np.where(deg > 1, tri / np.maximum(den, 1), 0.0)
+        thr = min(tri[deg > 1].sum() / max(den[deg > 1].sum(), 1e-12),
+                  fo.mean())
+        d_fo = np.abs(fo - thr)
+        edge = np.where(np.eye(hi - lo, dtype=bool), np.inf,
+                        np.abs(G - edge_threshold))
+        nb = np.where(A, d_fo[None, :], np.inf).min(1)
+        margin[lo:hi] = np.minimum.reduce([edge.min(1), d_fo, nb])
+    return margin
+
+
+def full_vote_case(case):
+    """(src, tgt, valid, n_regions, chunk_capacity): the JAX package's test
+    inputs (tests/test_graphvote.py), without and with padding slots, and
+    the odometry and mapping vote shapes R = 10, K = 163 and 829."""
+    if case == "literal":
+        rng = np.random.default_rng(3)
+        n, R = 90, 3
+        src = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
+        tgt = src + np.array([1.5, -0.7, 0.2], np.float32)
+        tgt += rng.normal(0, 0.02, (n, 3)).astype(np.float32)
+        out = rng.choice(n, n // 4, replace=False)
+        tgt[out] += rng.uniform(2.0, 8.0, (len(out), 3)).astype(np.float32)
+        return src, tgt.astype(np.float32), np.ones(n, bool), R, n // R + R
+    if case == "padding":
+        rng = np.random.default_rng(5)
+        n_valid, R = 60, 3
+        src_c = rng.uniform(-15, 15, (n_valid, 3)).astype(np.float32)
+        tgt_c = src_c + np.array([0.4, 0.9, -0.1], np.float32)
+        tgt_c += rng.normal(0, 0.02, (n_valid, 3)).astype(np.float32)
+        bad = rng.choice(n_valid, 12, replace=False)
+        tgt_c[bad] += rng.uniform(2.0, 6.0, (12, 3)).astype(np.float32)
+        valid = np.zeros(100, bool)
+        slots = np.sort(rng.choice(100, n_valid, replace=False))
+        valid[slots] = True
+        src = np.zeros((100, 3), np.float32)
+        tgt = np.zeros((100, 3), np.float32)
+        src[slots], tgt[slots] = src_c, tgt_c
+        return src, tgt, valid, R, n_valid // R + R
+    # odometry plane vote (1536 flat slots, K = 163) or mapping vote (8192
+    # stack slots, K = 829): ~92 % valid, a rigid motion with noise and a
+    # sixth of outliers
+    n, R = {"odometry": (1536, 10), "mapping": (8192, 10)}[case]
+    rng = np.random.default_rng(n)
+    src = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
+    tgt = src + np.array([0.6, 0.1, -0.05], np.float32)
+    tgt += rng.normal(0, 0.05, (n, 3)).astype(np.float32)
+    bad = rng.random(n) < 1 / 6
+    tgt[bad] += rng.uniform(2.0, 6.0, (bad.sum(), 3)).astype(np.float32)
+    valid = rng.random(n) < 0.92
+    return src, tgt.astype(np.float32), valid, R, n // R + R
+
+
 @pytest.mark.cuda
 def test_xla_vote_backend_refused_on_cuda(cuda):
     x = torch.zeros(64, 3, device=cuda)
@@ -274,18 +372,106 @@ def test_xla_vote_backend_refused_on_cuda(cuda):
 
 
 @pytest.mark.cuda
-def test_cuda_pipeline_matches_cpu_and_counts_launches(cuda):
-    run = dict(n_frames=3, profile="hdl64-small", n_azimuth=700, speed=0.6,
-               seed=2)
+@pytest.mark.parametrize("case", ["odometry", "mapping"])
+def test_full_graph_vote_cuda_matches_cpu(cuda, case):
+    """The same call on CUDA and on CPU tensors: selections equal but for
+    entries with a decision within DECISION_TOL of its threshold in float64,
+    scores within 1e-5 (cuBLAS and the CPU sum the triangle products in
+    other orders)."""
+    src, tgt, valid, R, K = full_vote_case(case)
+    slots = np.nonzero(valid)[0]
+    margin = np.full(len(valid), np.inf)
+    margin[slots] = full_vote_margins(src[slots], tgt[slots], R)
+    excused = margin < DECISION_TOL
+    args = [torch.as_tensor(a) for a in (src, tgt, valid)]
+    cpu = full_graph_vote(*args, n_regions=R, chunk_capacity=K)
+    gpu = full_graph_vote(*(a.to(cuda) for a in args), n_regions=R,
+                          chunk_capacity=K)
+    g_sel, g_score = gpu.selected.cpu().numpy(), gpu.score.cpu().numpy()
+    c_sel, c_score = cpu.selected.numpy(), cpu.score.numpy()
+    assert 0.3 * valid.sum() < c_sel.sum() < valid.sum()
+    bad = [(int(i), float(margin[i])) for i in np.nonzero(g_sel != c_sel)[0]
+           if not excused[i]]
+    assert not bad, f"selection differs at (entry, margin) {bad}"
+    both = g_sel & c_sel & ~excused
+    np.testing.assert_allclose(g_score[both], c_score[both], rtol=0,
+                               atol=1e-5)
+
+
+def _ring_slotted(n_rings=64, per_ring=1024, seed=0):
+    """A flagship-sized ring-slotted less-flat cloud (ring r owns rows
+    [r * per_ring, (r + 1) * per_ring)) about 40 % full, and a query set
+    moved by 0.3 m."""
+    rng = np.random.default_rng(seed)
+    pts = simulate_scan(World.urban(seed=seed), np.zeros(3), n_rings=n_rings,
+                        n_azimuth=900, noise=0.01, seed=seed + 1)
+    ring = np.arange(len(pts)) % n_rings
+    xyz = np.zeros((n_rings * per_ring, 3), np.float32)
+    rel = np.zeros(n_rings * per_ring, np.float32)
+    mask = np.zeros(n_rings * per_ring, bool)
+    for r in range(n_rings):
+        sel = pts[ring == r][:per_ring]
+        rows = r * per_ring + np.arange(len(sel))
+        xyz[rows], rel[rows] = sel, r + 0.05
+        mask[rows] = rng.random(len(sel)) < 0.9
+    query = (pts[rng.permutation(len(pts))[:1536]]
+             + np.float32(0.3)).astype(np.float32)
+    return xyz, rel, mask, query
+
+
+@pytest.mark.cuda
+def test_surf_tiled_matches_grid_on_card(cuda):
+    """The tiled search on the compacted cloud (live count read once) and
+    the grid search on the ring-slotted cloud, both on the card: the same
+    points but where float64 puts two candidates within the Gram rounding
+    of each other, and valid flags equal but within that rounding of the
+    25 m² gate."""
+    xyz, rel, mask, query = _ring_slotted()
+    dev_cloud = PointCloud(*(torch.as_tensor(a).to(cuda)
+                             for a in (xyz, rel, mask)))
+    km, kx, kr = compact_rows(dev_cloud.mask, dev_cloud.capacity,
+                              dev_cloud.xyz, dev_cloud.rel)
+    compact = PointCloud(kx, kr, km)
+    q = torch.as_tensor(query).to(cuda)
+    qm = torch.ones(len(query), dtype=torch.bool, device=cuda)
+    g = surf_correspondences_grid(q, qm, dev_cloud, 64)
+    t = surf_correspondences(q, qm, compact, ref_count=int(km.sum()))
+    qd = q.double()
+    scale = (qd * qd).sum(-1) + 1e4
+    tol = 1e-5 * 25 + 1e-4 + 4 * EPS32 * scale
+    pairs = ((t.a_idx, g.a_idx), (t.b_idx, g.b_idx), (t.c_idx, g.c_idx))
+    d_t = [((compact.xyz[ti].double() - qd) ** 2).sum(-1) for ti, _ in pairs]
+    d_g = [((dev_cloud.xyz[gi].double() - qd) ** 2).sum(-1) for _, gi in pairs]
+    near_gate = torch.stack([(d - 25.0).abs() <= tol for d in d_g]).any(0)
+    assert int(g.valid.sum()) > 500
+    assert not ((t.valid != g.valid) & ~near_gate).any()
+    both = t.valid & g.valid
+    for (ti, gi), dt, dg in zip(pairs, d_t, d_g):
+        moved = both & (compact.xyz[ti] != dev_cloud.xyz[gi]).any(-1)
+        assert not (moved & ((dt - dg).abs() > tol)).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("latent", [False, True])
+def test_cuda_pipeline_matches_cpu_and_counts_launches(cuda, latent):
+    run = dict(n_frames=5 if latent else 3, profile="hdl64-small",
+               n_azimuth=700, speed=0.6, seed=2)
     cfg = tpl.PROFILES[run["profile"]]
+    if latent:
+        cfg = latent_vote_config(cfg)
     KNN5.launches = VOTE.launches = 0
-    pipe, res, _ = tpl.run_synthetic(**run, device="cuda")
+    pipe, res = _run_synthetic(cfg, run, "cuda")
     n_mapped = sum(r.mapped for r in res)
-    # one vote per odometry outer iteration; a corner and a surf 5-NN per
-    # mapping outer iteration
-    assert VOTE.launches == cfg.odometry.outer_iterations * len(res)
-    assert KNN5.launches == 2 * cfg.mapping.outer_iterations * n_mapped
-    cpu_pipe, _, _ = tpl.run_synthetic(**run, device="cpu")
+    want = expected_launches(cfg, len(res), n_mapped)
+    assert {"vote.cu": VOTE.launches, "knn.cu": KNN5.launches} == want
+    cpu_pipe, _ = _run_synthetic(cfg, run, "cpu")
     # the CPU and the card round differently; see test_torch_pipeline.py
     np.testing.assert_allclose(pipe.mapped_positions(),
                                cpu_pipe.mapped_positions(), rtol=0, atol=0.02)
+
+
+def _run_synthetic(cfg, run, device):
+    pipe = tpl.Pipeline(cfg, device=device)
+    frames = tpl.synthetic_frames(run["n_frames"], cfg, run["n_azimuth"],
+                                  run["speed"], run["seed"])
+    return pipe, [pipe.process_frame(xyz, mask) for _, xyz, mask in frames]

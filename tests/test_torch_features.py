@@ -4,8 +4,15 @@ and masks bitwise equal; picked coordinates to 1e-6 (the same points,
 moved by identical gathers) and less-flat centroids to 1e-5 (segment-sum
 reassociation); rel_time to 1e-6 and rel = ring + 0.1 * rel_time to 1e-5
 (arctan2 differs in the last ulp between the libraries, and a float32 ulp
-at 64 is ~4e-6)."""
+at 64 is ~4e-6).  The occlusion filter (off in every profile) is held to
+the same bands: its mask bitwise, and the four clouds with it on against
+the JAX stage run op by op (``jax.disable_jit``): under ``jit`` XLA's
+FMA-contracted curvature reorders near-tied less-sharp picks on this scan,
+the band ROADMAP.md Queue 3 records."""
 
+import dataclasses
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -73,6 +80,49 @@ def test_extract_features_matches_jax(scan, cloud):
                                     torch.as_tensor(mask), CFG), cloud)
     jm = np.asarray(j.mask)
     assert jm.sum() > 50
+    np.testing.assert_array_equal(t.mask.numpy(), jm)
+    np.testing.assert_array_equal(t.ring().numpy(), np.asarray(jnp.floor(
+        j.rel).astype(jnp.int32)))
+    np.testing.assert_allclose(t.xyz.numpy(), np.asarray(j.xyz), rtol=0,
+                               atol=1e-6 if cloud != "less_flat" else 1e-5)
+    np.testing.assert_allclose(t.rel.numpy(), np.asarray(j.rel), rtol=0,
+                               atol=1e-5)
+
+
+OCC = dataclasses.replace(CFG, occlusion_filter=True)
+
+
+def test_occlusion_mask_on_the_same_grid(scan):
+    xyz, mask = scan
+    grid = jf.extract_features(jnp.asarray(xyz), jnp.asarray(mask), OCC).full
+    want = np.asarray(jf.occlusion_mask(grid, OCC))
+    got = tf.occlusion_mask(tf.RangeImage(*[torch.as_tensor(np.array(a))
+                                            for a in grid]), OCC)
+    # a street scene has both shadow boundaries and grazing beams
+    assert 100 < want.sum() < 0.5 * np.asarray(grid.mask).sum()
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.fixture(scope="module")
+def occluded_jax(scan):
+    xyz, mask = scan
+    with jax.disable_jit():
+        return jf.extract_features(jnp.asarray(xyz), jnp.asarray(mask), OCC)
+
+
+@pytest.mark.parametrize("cloud", ["sharp", "less_sharp", "flat", "less_flat"])
+def test_extract_features_with_occlusion_filter_matches_jax(scan, occluded_jax,
+                                                            cloud):
+    xyz, mask = scan
+    j = getattr(occluded_jax, cloud)
+    t = getattr(tf.extract_features(torch.as_tensor(xyz),
+                                    torch.as_tensor(mask), OCC), cloud)
+    off = getattr(jf.extract_features(jnp.asarray(xyz), jnp.asarray(mask),
+                                      CFG), cloud)
+    jm = np.asarray(j.mask)
+    assert jm.sum() > 50
+    # the filter changed this cloud
+    assert not np.array_equal(np.asarray(j.xyz), np.asarray(off.xyz))
     np.testing.assert_array_equal(t.mask.numpy(), jm)
     np.testing.assert_array_equal(t.ring().numpy(), np.asarray(jnp.floor(
         j.rel).astype(jnp.int32)))

@@ -2,7 +2,9 @@
 package.
 
 The odometry searches (corner, grid surf) must pick the same indices and
-validity.  ``knn5_plain`` (the plain version of the CUDA 5-NN kernel) is held
+validity; the two-pass tiled surf search the same validity and picks at
+the same exact distances (indices modulo ties), with or without its
+live-prefix count, and the same points as the grid search.  ``knn5_plain`` (the plain version of the CUDA 5-NN kernel) is held
 against ``knn_tiled`` and the Pallas kernel in interpret mode, mirroring
 tests/test_pallas_knn.py: distances to rtol 1e-5 / atol 1e-4 plus two float32
 ulps of |q|² + |r|² — the Gram form ‖q‖² + ‖r‖² − 2q·r rounds at that scale
@@ -200,6 +202,100 @@ def test_surf_correspondences_grid_match_jax(scans):
     for name in ("a_idx", "b_idx", "c_idx", "valid"):
         np.testing.assert_array_equal(getattr(t, name).numpy(),
                                       np.asarray(getattr(j, name)))
+
+
+def _compacted(xyz, rel, mask):
+    """The live rows of a cloud moved to its prefix in order, as the tiled
+    odometry hand-off stores it (ops.voxel.compact_rows)."""
+    n = int(mask.sum())
+    out = [np.zeros_like(a) for a in (xyz, rel, mask)]
+    for o, a in zip(out, (xyz, rel, mask)):
+        o[:n] = a[mask]
+    return (*out, n)
+
+
+def _picked_sq_dist(query, ref_xyz, idx):
+    return ((ref_xyz.astype(np.float64)[idx] - query.astype(np.float64)) ** 2
+            ).sum(-1)
+
+
+@pytest.mark.parametrize("ref_count", [False, True])
+def test_surf_correspondences_tiled_match_jax(scans, ref_count):
+    """The two-pass tiled search over a compacted cloud, with and without
+    the live-prefix count: valid flags equal, and each pick at the same
+    exact distance as JAX's (indices modulo ties)."""
+    a, b = scans
+    rng = np.random.default_rng(10)
+    xyz, rel, mask = _ring_cloud(a[::8], 16, 512, rng)
+    xyz, rel, mask, n_live = _compacted(xyz, rel, mask)
+    assert n_live < len(mask) // 2
+    qn = 1000
+    query = b[rng.permutation(len(b))[:qn]].astype(np.float32)
+    qmask = rng.random(qn) < 0.95
+    count = n_live if ref_count else None
+    j = jk.surf_correspondences(
+        jnp.asarray(query), jnp.asarray(qmask),
+        JCloud(jnp.asarray(xyz), jnp.asarray(rel), jnp.asarray(mask)),
+        tile=512, ref_count=None if count is None else jnp.int32(count))
+    t = tk.surf_correspondences(
+        torch.as_tensor(query), torch.as_tensor(qmask),
+        TCloud(torch.as_tensor(xyz), torch.as_tensor(rel),
+               torch.as_tensor(mask)), tile=512, ref_count=count)
+    valid = np.asarray(j.valid)
+    assert valid.sum() > 100
+    np.testing.assert_array_equal(t.valid.numpy(), valid)
+    for name in ("a_idx", "b_idx", "c_idx"):
+        ti, ji = getattr(t, name).numpy(), np.asarray(getattr(j, name))
+        assert (ti[valid] < n_live).all()
+        np.testing.assert_array_equal(
+            _picked_sq_dist(query, xyz, ti)[valid],
+            _picked_sq_dist(query, xyz, ji)[valid])
+
+
+def test_live_prefix_skip_is_exact(scans):
+    """Visiting only the live tiles of a compacted cloud gives the full
+    sweep's matches exactly."""
+    a, b = scans
+    rng = np.random.default_rng(11)
+    xyz, rel, mask, n_live = _compacted(*_ring_cloud(a[::8], 16, 512, rng))
+    query = torch.as_tensor(b[:600].astype(np.float32))
+    qmask = torch.ones(600, dtype=torch.bool)
+    cloud = TCloud(torch.as_tensor(xyz), torch.as_tensor(rel),
+                   torch.as_tensor(mask))
+    full = tk.surf_correspondences(query, qmask, cloud, tile=512)
+    skip = tk.surf_correspondences(query, qmask, cloud, tile=512,
+                                   ref_count=n_live)
+    assert -(-n_live // 512) < -(-len(mask) // 512)
+    for f, s_ in zip(full, skip):
+        assert torch.equal(f, s_)
+
+
+@pytest.mark.parametrize("compacted", [False, True])
+def test_surf_tiled_matches_grid(scans, compacted):
+    """The tiled search, on a ring-slotted cloud or on its compacted copy
+    (with the live count), finds the same points as the grid search on the
+    ring-slotted cloud: ring-major order is global index order, and
+    compaction keeps the order."""
+    a, b = scans
+    rng = np.random.default_rng(12)
+    n_rings = 16
+    xyz, rel, mask = _ring_cloud(a[::8], n_rings, 512, rng)
+    query = torch.as_tensor(b[rng.permutation(len(b))[:1000]].astype(
+        np.float32))
+    qmask = torch.as_tensor(rng.random(1000) < 0.95)
+    grid_cloud = TCloud(*(torch.as_tensor(x) for x in (xyz, rel, mask)))
+    g = tk.surf_correspondences_grid(query, qmask, grid_cloud, n_rings)
+    if compacted:
+        cx, cr, cm, n_live = _compacted(xyz, rel, mask)
+        cloud = TCloud(*(torch.as_tensor(x) for x in (cx, cr, cm)))
+    else:
+        cloud, n_live = grid_cloud, None
+    t = tk.surf_correspondences(query, qmask, cloud, tile=1024,
+                                ref_count=n_live)
+    assert torch.equal(t.valid, g.valid) and int(g.valid.sum()) > 100
+    v = g.valid
+    for ti, gi in ((t.a_idx, g.a_idx), (t.b_idx, g.b_idx), (t.c_idx, g.c_idx)):
+        assert torch.equal(cloud.xyz[ti][v], grid_cloud.xyz[gi][v])
 
 
 # corner and surf capacities of the flagship mapping stage (HDL64_KITTI)

@@ -227,7 +227,7 @@ def test_scan_to_map_inputs_match_jax(carried):
     assert flips.sum() <= 0.01 * well.sum(), (flips.sum(), well.sum())
 
 
-@pytest.mark.parametrize("vote_mode", ["off", "simple"])
+@pytest.mark.parametrize("vote_mode", ["off", "simple", "full"])
 @pytest.mark.parametrize("recenter", [False, True])
 def test_mapping_step_matches_jax(carried, recenter, vote_mode):
     jstate, corner, surf, q_odom, t_odom = carried

@@ -1,10 +1,12 @@
 """Residuals, analytic Jacobians and the LM solve of the PyTorch port.
 
-Residuals agree with the JAX package to 1e-5 and Jacobians to 1e-5
-relative / 1e-4 absolute (entries reach ~20 m, a few float32 ulps); in
+All six factor types (the live path's edge, plane and plane-norm factors
+and the reference's latent scalar-edge, componentwise-plane and distance
+factors): residuals agree with the JAX package to 1e-5 and Jacobians to
+1e-5 relative / 1e-4 absolute (entries reach ~20 m, a few float32 ulps); in
 float64 the analytic Jacobians equal ``torch.autograd``'s through the
 right-tangent update q ⊗ Exp(δθ), t + δt to 1e-8; the LM pose agrees with
-the JAX package's to 1e-5."""
+the JAX package's to 1e-5, with one family or all six."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -27,12 +29,17 @@ def _pose(rng):
         rng.normal(size=3).astype(np.float32)
 
 
+def _unit(rng, n):
+    v = rng.normal(size=(n, 3)).astype(np.float32)
+    return (v / np.linalg.norm(v, axis=1, keepdims=True)).astype(np.float32)
+
+
 def _factors(kind, rng, n=64):
     cp = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
     w = rng.uniform(0.5, 2.0, n).astype(np.float32)
     mask = rng.random(n) < 0.9
     s = np.ones(n, np.float32)
-    if kind == "edge":
+    if kind in ("edge", "edge_scalar"):
         a = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
         b = a + rng.normal(size=(n, 3)).astype(np.float32)
         return dict(cp=cp, a=a, b=b, s=s, weight=w, mask=mask)
@@ -40,22 +47,32 @@ def _factors(kind, rng, n=64):
         a, b, c = (rng.uniform(-20, 20, (n, 3)).astype(np.float32)
                    for _ in range(3))
         return dict(cp=cp, a=a, b=b, c=c, s=s, weight=w, mask=mask)
-    nrm = rng.normal(size=(n, 3)).astype(np.float32)
-    nrm /= np.linalg.norm(nrm, axis=1, keepdims=True)
-    return dict(cp=cp, n=nrm, d=rng.normal(size=n).astype(np.float32),
+    if kind == "plane_component":
+        return dict(cp=cp, j=rng.uniform(-20, 20, (n, 3)).astype(np.float32),
+                    n=_unit(rng, n), s=s, weight=w, mask=mask)
+    if kind == "distance":
+        return dict(cp=cp, target=rng.uniform(-20, 20, (n, 3)).astype(
+            np.float32), weight=w, mask=mask)
+    return dict(cp=cp, n=_unit(rng, n), d=rng.normal(size=n).astype(np.float32),
                 weight=w, mask=mask)
+
+
+_CLASSES = {"edge": "EdgeFactors", "plane_norm": "PlaneNormFactors",
+            "edge_scalar": "EdgeScalarFactors",
+            "plane_component": "PlaneComponentFactors",
+            "distance": "DistanceFactors"}
 
 
 def _build(pkg, kind, f, to):
     f = {k: to(v) for k, v in f.items()}
-    if kind == "edge":
-        return pkg.EdgeFactors(**f), pkg.edge_residuals
     if kind == "plane":
         return pkg.make_plane_factors(**f), pkg.plane_residuals
-    return pkg.PlaneNormFactors(**f), pkg.plane_norm_residuals
+    return (getattr(pkg, _CLASSES[kind])(**f),
+            getattr(pkg.residuals, f"{kind}_residuals"))
 
 
-KINDS = ["edge", "plane", "plane_norm"]
+KINDS = ["edge", "plane", "plane_norm", "edge_scalar", "plane_component",
+         "distance"]
 
 
 @pytest.mark.parametrize("kind", KINDS)
@@ -128,3 +145,53 @@ def test_lm_solve_without_factors_keeps_the_pose():
         **{k: torch.as_tensor(v) for k, v in f.items()}))
     q, t, _ = ts.lm_solve(q0, t0, fs)
     assert torch.equal(q, q0) and torch.equal(t, t0)
+
+
+def _consistent_factors(kind, rng, q_true, t_true, n=120):
+    """Factors of one kind that the true pose satisfies up to ~1 cm of
+    noise, so the LM has a minimum to find."""
+    f = _factors(kind, rng, n)
+    pw = np.asarray(tq.quat_rotate(torch.as_tensor(q_true)[None],
+                                   torch.as_tensor(f["cp"]))) + t_true
+    noise = rng.normal(scale=0.01, size=(n, 3)).astype(np.float32)
+    if kind in ("edge", "edge_scalar"):
+        d = rng.normal(size=(n, 3)).astype(np.float32)
+        f["a"] = (pw + noise + d).astype(np.float32)
+        f["b"] = (pw + noise - d).astype(np.float32)
+    elif kind == "plane":
+        u, v = _unit(rng, n), _unit(rng, n)
+        f["a"] = (pw + noise).astype(np.float32)
+        f["b"] = (pw + noise + 3 * u).astype(np.float32)
+        f["c"] = (pw + noise + 3 * v).astype(np.float32)
+    elif kind == "plane_component":
+        f["j"] = (pw + noise).astype(np.float32)
+    elif kind == "distance":
+        f["target"] = (pw + noise).astype(np.float32)
+    else:
+        f["d"] = (-(f["n"] * pw).sum(1) + noise[:, 0]).astype(np.float32)
+    return f
+
+
+def test_lm_solve_with_all_six_families_matches_jax():
+    rng = np.random.default_rng(21)
+    q_true = np.asarray(tq.quat_normalize(torch.as_tensor(
+        [0.05, -0.03, 0.02, 1.0])))
+    t_true = np.array([0.4, -0.2, 0.1], np.float32)
+    fs = {kind: _consistent_factors(kind, rng, q_true, t_true)
+          for kind in KINDS}
+    jset = js.FactorSet(**{k: _build(js, k, f, jnp.asarray)[0]
+                           for k, f in fs.items()})
+    tset = ts.FactorSet(**{k: _build(ts, k, f, torch.as_tensor)[0]
+                           for k, f in fs.items()})
+    assert all(f is not None for f in tset)
+    q0 = np.array([0.0, 0.0, 0.0, 1.0], np.float32)
+    t0 = np.zeros(3, np.float32)
+    jq, jt, jc = js.lm_solve(jnp.asarray(q0), jnp.asarray(t0), jset,
+                             n_iterations=6)
+    tq_, tt, tc = ts.lm_solve(torch.as_tensor(q0), torch.as_tensor(t0), tset,
+                              n_iterations=6)
+    np.testing.assert_allclose(tq_.numpy(), np.asarray(jq), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tt.numpy(), np.asarray(jt), rtol=0, atol=1e-5)
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-4, atol=1e-6)
+    # every family pulls toward the true pose
+    assert np.linalg.norm(tt.numpy() - t_true) < 0.05

@@ -1,5 +1,5 @@
-"""Graph-vote counts and the simple vote of the PyTorch port against the JAX
-package.
+"""Graph-vote counts, the simple vote and the full graph vote of the PyTorch
+port against the JAX package.
 
 ``compat_votes_plain`` (the plain version of the CUDA vote kernel), the
 Pallas kernel in interpret mode and the XLA votes are each held to float64
@@ -23,7 +23,12 @@ from light_loam_tpu.ops import pallas_vote as jpv
 from light_loam_tpu_torch.ops import graphvote as tg
 from light_loam_tpu_torch.ops import cuda_vote as cv
 from light_loam_tpu_torch.ops.cuda_vote import VOTE, compat_votes, compat_votes_plain
-from test_torch_cuda import votes_f64
+from test_torch_cuda import (
+    DECISION_TOL,
+    full_vote_case,
+    full_vote_margins,
+    votes_f64,
+)
 
 torch.set_num_threads(2)
 
@@ -138,10 +143,80 @@ def test_run_vote_modes():
     src, tgt, valid = (torch.as_tensor(a) for a in _vote_inputs())
     sel, w = tg.run_vote("off", src, tgt, valid, 5, 48)
     assert torch.equal(sel, valid) and (w == 1).all()
-    with pytest.raises(NotImplementedError):
-        tg.run_vote("full", src, tgt, valid, 5, 48)
+    sel, score = tg.run_vote("full", src, tgt, valid, 5, 48)
+    full = tg.full_graph_vote(src, tgt, valid, n_regions=5, chunk_capacity=48)
+    assert torch.equal(sel, full.selected) and torch.equal(score, full.score)
+    assert 0 < int(sel.sum()) < int(valid.sum())
+    assert not sel[~valid].any() and (score[~sel] == 0).all()
     with pytest.raises(ValueError):
         tg.run_vote("bogus", src, tgt, valid, 5, 48)
+
+
+def test_cube_root_rounds_once():
+    """The port's cube root is the float64 cube root rounded once to
+    float32; float32 pow(x, 1/3), like XLA's CPU cbrt, is off by up to 15
+    ulp at tiny x (the band ROADMAP.md Queue 3 records)."""
+    rng = np.random.default_rng(0)
+    x = np.concatenate([rng.random(200_000), np.exp(rng.uniform(-87, 0, 200_000)),
+                        [0.0, 1.0]]).astype(np.float32)
+    exact = np.cbrt(x.astype(np.float64)).astype(np.float32)
+    got = tg.cube_root(torch.as_tensor(x)).numpy()
+    np.testing.assert_array_equal(got, exact)
+
+    def ulps(a):
+        return np.abs(a.view(np.int32).astype(np.int64)
+                      - exact.view(np.int32).astype(np.int64))
+
+    pow32 = ulps(torch.as_tensor(x).pow(1.0 / 3.0).numpy())
+    xla = ulps(np.asarray(jnp.cbrt(jnp.asarray(x))))
+    assert 0 < pow32.max() <= 15 and 0 < xla.max() <= 15
+    # near the 0.95 adjacency threshold both stay within one ulp
+    near = x > 0.9
+    assert pow32[near].max() <= 1 and xla[near].max() <= 1
+
+
+@pytest.mark.parametrize("case", ["literal", "padding", "odometry"])
+def test_full_graph_vote_matches_jax_and_literal(case):
+    """Selected sets equal to the JAX package's and to the float64 literal
+    port of the reference (tests/oracle.py) but for entries a decision of
+    which float64 puts within DECISION_TOL of its threshold (named in the
+    failure); scores within 1e-5 of JAX's and 1e-3 of the oracle's."""
+    from oracle import literal_full_vote
+
+    src, tgt, valid, R, K = full_vote_case(case)
+    if case == "odometry":
+        assert K == 163
+    slots = np.nonzero(valid)[0]
+    oracle = literal_full_vote(src[slots], tgt[slots], n_regions=R)
+    want_sel = np.zeros(len(valid), bool)
+    want_score = np.zeros(len(valid))
+    for rank, s in oracle.items():
+        want_sel[slots[rank]] = True
+        want_score[slots[rank]] = s
+    margin = np.full(len(valid), np.inf)
+    margin[slots] = full_vote_margins(src[slots], tgt[slots], R)
+    excused = margin < DECISION_TOL
+
+    j = jg.full_graph_vote(jnp.asarray(src), jnp.asarray(tgt),
+                           jnp.asarray(valid), n_regions=R, chunk_capacity=K)
+    t = tg.full_graph_vote(torch.as_tensor(src), torch.as_tensor(tgt),
+                           torch.as_tensor(valid), n_regions=R,
+                           chunk_capacity=K)
+    t_sel, t_score = t.selected.numpy(), t.score.numpy()
+    j_sel, j_score = np.asarray(j.selected), np.asarray(j.score)
+    assert not t_sel[~valid].any()
+    assert 0.3 * valid.sum() < t_sel.sum() < valid.sum()
+    for name, other in (("jax", j_sel), ("oracle", want_sel)):
+        flips = np.nonzero(t_sel != other)[0]
+        bad = [(int(i), float(margin[i])) for i in flips if not excused[i]]
+        assert not bad, f"{name}: selection differs at (entry, margin) {bad}"
+    both = t_sel & j_sel & ~excused
+    np.testing.assert_allclose(t_score[both], j_score[both], rtol=0, atol=1e-5)
+    both = t_sel & want_sel & ~excused
+    np.testing.assert_allclose(t_score[both], want_score[both], rtol=0,
+                               atol=1e-3)
+    np.testing.assert_array_equal(t.degree.numpy()[both],
+                                  np.asarray(j.degree)[both])
 
 
 @pytest.mark.parametrize("R,K", [(10, 163), (10, 829), (3, 300), (1, 1),
