@@ -31,7 +31,23 @@ exception and a non-zero exit):
      search on one flagship frame (ring-slotted and compacted) and of the
      full graph vote at both shapes;
   8. the distortion hook and the occlusion filter over 8 frames, the same
-     checks.
+     checks;
+  9. the fused frame (``fused_step=True``: the whole frame captured once as
+     a CUDA graph, one replay per frame) over the 12 frames of phase 5:
+     warm-up and capture seconds, launch counts (those the capture
+     recorded times the replays), mapped positions against the JAX
+     package's and against phase 5's own, the ``fused_step`` stream ms and
+     frames/s; and per-call device ms of the two map-store merges and of
+     the device-side selection between them that the fused frame runs;
+ 10. the chunked replay from a KITTI folder: the 12 frames are written as
+     a KITTI-layout sequence (``.bin`` records, ``times.txt``, camera-frame
+     ground truth) into a temporary directory, then ``run_kitti`` replays
+     it with ``chunk_size=4`` and with ``fused=True`` (reader thread and
+     pose writer on the clock): 12 rows each, row 0 the identity, the two
+     files within 1 mm, ATE against the ground truth under 0.30 m;
+ 11. checkpoint and export: a staged run saved after frame 6 and loaded
+     into a fresh Pipeline gives the uninterrupted run's frame 7, and
+     ``export_map`` writes two PLY files with the stores' live counts.
 
 The last three lines are a JSON object with each kernel's numbers, the
 card's name and power limit, and ``{"ok": true, "device": {...}}``.
@@ -47,17 +63,25 @@ import dataclasses
 import functools
 import json
 import statistics
+import os
 import subprocess
 import sys
+import tempfile
 import time
 
 import numpy as np
 import torch
 
 from light_loam_tpu_torch.core.frame import PointCloud
+from light_loam_tpu_torch.io.evaluation import ate_rmse
+from light_loam_tpu_torch.io.kitti import gt_to_lidar_frame, read_gt_poses
+from light_loam_tpu_torch.models import fused, mapping
+from light_loam_tpu_torch.models.mapping import MappingState
+from light_loam_tpu_torch.models.odometry import OdometryState
 from light_loam_tpu_torch.models.pipeline import (
     PROFILES,
     Pipeline,
+    run_kitti,
     synthetic_frames,
 )
 from light_loam_tpu_torch.ops.cuda_knn import KNN5, knn5, knn5_plain
@@ -72,7 +96,7 @@ from light_loam_tpu_torch.ops.knn import (
     surf_correspondences,
     surf_correspondences_grid,
 )
-from light_loam_tpu_torch.ops.voxel import compact_rows
+from light_loam_tpu_torch.ops.voxel import compact_rows, voxel_downsample
 
 # Mapped positions (m) of the JAX package's pipeline on the same run, on the
 # CPU, produced by:
@@ -161,6 +185,19 @@ JAX_UNDISTORT_MAPPED_POSITIONS = np.array([
 ])
 UNDISTORT_N_FRAMES = 8
 POSITION_TOL_M = 0.05
+# Phases 9-11 compare two runs on the same card.  The fused and the chunked
+# frame run the staged path's own stage functions, so the runs differ only
+# by the order of the atomic adds in the voxel sums (ops/voxel.py); but that
+# order changes from run to run, a centroid's last bit with it, and through
+# the float32 plane-fit gates the trajectory: within 12 frames two runs are
+# up to a centimetre apart, two staged runs as much as a staged and a fused
+# one (phases 9-11 print each gap; PERF.md has the numbers).  So two runs
+# are held to 3 cm (the JAX package's own band between its chunked and
+# per-frame programs, tests/test_fused.py), not to the 1 mm or 1e-5 that a
+# deterministic sum would allow.
+SAME_CARD_TOL_M = 0.03
+KITTI_CHUNK = 4
+KITTI_ATE_TOL_M = 0.30
 # knn5 distances: the Gram form |q|^2 + |r|^2 - 2 q.r rounds at the scale of
 # |q|^2 + |r|^2 (~2e4 m^2 at 100 m, where a float32 ulp is ~1e-3 m^2), not of
 # d, and the kernel (FMA contraction) and the plain version (cuBLAS) round it
@@ -224,6 +261,26 @@ def _device_ms(fn, reps: int) -> float:
             return start.elapsed_time(end) / reps
         cycles *= 2
     raise RuntimeError("device timing: the host never got ahead of the card")
+
+
+def _graph_ms(fn, reps: int) -> float:
+    """Device ms per call of ``fn`` captured as a CUDA graph and replayed
+    ``reps`` times back to back: for calls of so many launches that the
+    host could not keep ahead of the card."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    graph.replay()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 def phase_device() -> str:
@@ -480,6 +537,7 @@ def phase_pipeline(tag, cfg, n_frames, jax_positions, kernels) -> dict:
         k.launches = 0
     results = []
     torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     for i, (_, xyz, mask) in enumerate(frames):
         results.append(pipe.process_frame(xyz, mask))
@@ -515,17 +573,20 @@ def phase_pipeline(tag, cfg, n_frames, jax_positions, kernels) -> dict:
     stages = {n: s.mean_ms for n, s in pipe.timers.device_report().items()}
     fps = (n_frames - 1) / (t_end - t1)
     o = cfg.odometry
-    print(f"[{tag}] hdl64 {n_frames} frames, {n_mapped} mapped, votes "
+    print(f"[{tag}] hdl64 {n_frames} frames, {n_mapped} mapped, "
+          f"{'fused' if cfg.fused_step else 'staged'}, votes "
           f"plane {o.plane_vote_mode} corner {o.corner_vote_mode} mapping "
           f"{cfg.mapping.vote_mode}, surf search {o.surf_knn}, distortion "
           f"{o.distortion}, occlusion filter {cfg.scan.occlusion_filter} | "
-          f"launches {launches} | max "
+          f"launches {launches} | peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB | max "
           f"|mapped - jax| {dev_m.max():.4f} m | "
           + " ".join(f"{n} {ms:.2f}ms" for n, ms in sorted(stages.items()))
           + f" (stream, mean of frames 2-{n_frames}) | {fps:.2f} frames/s "
           f"(host wall, frames 2-{n_frames}; first frame "
           f"{(t1 - t0) * 1e3:.0f} ms)")
-    return dict(launches=launches, stages=stages)
+    return dict(launches=launches, stages=stages, positions=positions,
+                fps=fps, pipe=pipe)
 
 
 FULL_VOTE_SHAPES = ((10, 163), (10, 829))
@@ -614,6 +675,232 @@ def phase_latent_calls(dev) -> dict:
     return out
 
 
+def _check_same_card(tag, a, b) -> float:
+    gap = float(np.linalg.norm(a - b, axis=1).max())
+    if gap > SAME_CARD_TOL_M:
+        raise AssertionError(f"{tag}: positions differ by {gap:.6f} m "
+                             f"(> {SAME_CARD_TOL_M} m)")
+    return gap
+
+
+def phase_fused(kernels, staged) -> dict:
+    """Phase 9: the fused frame over phase 5's frames, held to phase 5's
+    positions (``staged``) and the JAX package's."""
+    cfg = dataclasses.replace(PROFILES["hdl64"], fused_step=True)
+    torch.cuda.reset_peak_memory_stats()
+    graph = fused.frame_graph(cfg, "cuda")
+    print(f"[9 fused] graph of one flagship frame: warm-up "
+          f"{graph.warmup_seconds:.2f} s ({fused.WARMUP_PASSES} eager pass), "
+          f"capture and instantiate {graph.capture_seconds:.2f} s, peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    per_replay = {k.source.name: n for k, n in graph.kernel_launches.items()}
+    if per_replay != expected_launches(cfg, 1, 1):
+        raise AssertionError(f"the capture recorded {per_replay} launches")
+    p9 = phase_pipeline("9 fused", cfg, N_FRAMES, JAX_MAPPED_POSITIONS,
+                        kernels)
+    if graph.replays != N_FRAMES:
+        raise AssertionError(f"{graph.replays} replays for {N_FRAMES} frames")
+    gap = _check_same_card("phase 9 vs phase 5", p9["positions"],
+                           staged["positions"])
+    print(f"[9 fused] one graph replay per frame, {per_replay} launches per "
+          f"replay | max |fused - staged (phase 5)| {gap * 1e3:.4f} mm | "
+          f"{p9['fps']:.2f} frames/s fused against {staged['fps']:.2f} staged")
+    return p9
+
+
+def phase_merge_calls(pipe) -> None:
+    """Device ms per call of the surf map-store registration on phase 9's
+    final map: the sorted merge, the full re-sort, and what the fused frame
+    runs in place of the staged path's host branch (both, then a select)."""
+    cfg = pipe.cfg.mapping
+    state, surf = pipe.map_state, pipe.odo_state.surf_last
+    sx, _, sm, _ = voxel_downsample(surf.xyz, surf.rel, surf.mask,
+                                    cfg.plane_resolution,
+                                    cfg.stack_surf_capacity)
+    q, t = pipe.mapped_trajectory()
+    new = mapping.register_cloud(torch.as_tensor(q[-1]).cuda(),
+                                 torch.as_tensor(t[-1]).cuda(), sx)
+    select = torch.zeros((), dtype=torch.bool, device="cuda")
+    ms = {name: _graph_ms(functools.partial(
+              mapping._merge_into_store, state.surf, new, sm, state.cen, cfg,
+              cfg.plane_resolution, cfg.map_surf_capacity, flag), 20)
+          for name, flag in (("sorted", False), ("full", True),
+                             ("both + select", select))}
+    print(f"[9 fused] surf store registration ({int(state.surf.mask.sum())} "
+          f"live of {cfg.map_surf_capacity}, {int(sm.sum())} new points), "
+          "device ms per call (replayed as a graph): " + " | ".join(
+              f"{n} {v:.3f}" for n, v in ms.items()))
+
+
+def write_kitti_sequence(root, frames, sequence="99") -> None:
+    """The frames as a KITTI-layout sequence (kittiHelper.cpp:65-130):
+    sequences/<seq>/times.txt, velodyne/sequences/<seq>/velodyne/NNNNNN.bin
+    (x, y, z, intensity float32 records), results/<seq>.txt (camera-frame
+    ground truth: lidar (x, y, z) is camera (z, -x, -y))."""
+    seq_dir = os.path.join(root, "sequences", sequence)
+    vel_dir = os.path.join(root, "velodyne", "sequences", sequence, "velodyne")
+    res_dir = os.path.join(root, "results")
+    for d in (seq_dir, vel_dir, res_dir):
+        os.makedirs(d, exist_ok=True)
+    gt_rows = []
+    for i, (pos, xyz, mask) in enumerate(frames):
+        rec = np.zeros((int(mask.sum()), 4), np.float32)
+        rec[:, :3] = xyz[mask]
+        rec.tofile(os.path.join(vel_dir, f"{i:06d}.bin"))
+        H = np.eye(4)
+        H[:3, 3] = [-pos[1], -pos[2], pos[0]]
+        gt_rows.append(H[:3].reshape(-1))
+    np.savetxt(os.path.join(seq_dir, "times.txt"),
+               0.1 * np.arange(len(gt_rows)), fmt="%.6f")
+    np.savetxt(os.path.join(res_dir, f"{sequence}.txt"), np.asarray(gt_rows),
+               fmt="%.6e")
+
+
+def _chunk_graph_times(graph, frames) -> None:
+    """One chunk as ``chunk`` replays of a one-frame graph (what the entry
+    points run) against one replay of a graph of the whole chunk: stream ms
+    per chunk from the initial state, and what each capture took."""
+    xyz = torch.as_tensor(np.stack([f[1] for f in frames])).cuda()
+    mask = torch.as_tensor(np.stack([f[2] for f in frames])).cuda()
+    cfg, dev = graph.cfg, graph.device
+    whole = fused.FrameGraph(cfg, dev, graph.chunk, unroll=graph.chunk)
+    states = (OdometryState.init(cfg.scan.max_less_sharp,
+                                 cfg.scan.max_less_flat, dev),
+              MappingState.init(cfg.mapping, dev))
+    ms, rows = {}, {}
+    for name, g in (("per frame", graph), ("whole chunk", whole)):
+        ms[name] = _median_ms(
+            lambda: rows.__setitem__(name, g.run(*states, xyz, mask)[2]), 3)
+    gap = float(np.linalg.norm((rows["per frame"].map_t
+                                - rows["whole chunk"].map_t).cpu().numpy(),
+                               axis=1).max())
+    if gap > SAME_CARD_TOL_M:
+        raise AssertionError(f"chunk graphs differ by {gap:.6f} m")
+    print(f"[10 kitti] one chunk of {graph.chunk} frames, stream ms: "
+          f"{graph.chunk} replays of a one-frame graph {ms['per frame']:.2f} "
+          f"(capture {graph.capture_seconds:.2f} s) | one replay of a "
+          f"{graph.chunk}-frame graph {ms['whole chunk']:.2f} (capture "
+          f"{whole.capture_seconds:.2f} s) | max gap {gap * 1e3:.4f} mm")
+
+
+def phase_kitti(kernels, p5, p9) -> dict:
+    """Phase 10: KITTI folder in, trajectory files out, chunked and fused
+    per frame; returns the launches of both runs."""
+    cfg = PROFILES["hdl64"]
+    frames = list(synthetic_frames(N_FRAMES, cfg, n_azimuth=1800, speed=1.0,
+                                   seed=0))
+    torch.cuda.reset_peak_memory_stats()
+    graph = fused.frame_graph(cfg, "cuda", chunk=KITTI_CHUNK)
+    print(f"[10 kitti] graph for chunks of {KITTI_CHUNK} ({graph.unroll} "
+          f"frame per graph): warm-up {graph.warmup_seconds:.2f} s, capture "
+          f"and instantiate {graph.capture_seconds:.2f} s")
+    _chunk_graph_times(graph, frames[:KITTI_CHUNK])
+    launches, est, fps = {}, {}, {}
+    with tempfile.TemporaryDirectory() as root:
+        write_kitti_sequence(root, frames)
+        gt_cam = read_gt_poses(os.path.join(root, "results", "99.txt"))
+        for name, kwargs in (("chunked", dict(chunk_size=KITTI_CHUNK)),
+                             ("fused", dict(fused=True))):
+            for k in kernels:
+                k.launches = 0
+            result = os.path.join(root, f"traj_{name}.txt")
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            run_kitti(root, "99", result, profile="hdl64", **kwargs)
+            torch.cuda.synchronize()
+            fps[name] = N_FRAMES / (time.perf_counter() - t0)
+            launches[name] = {k.source.name: k.launches for k in kernels}
+            want = expected_launches(cfg, N_FRAMES, N_FRAMES)
+            if launches[name] != want:
+                raise AssertionError(f"{name}: launches {launches[name]} != "
+                                     f"{want}")
+            est[name] = read_gt_poses(result)
+    R, t = gt_to_lidar_frame(gt_cam)
+    gt = np.concatenate([R, t[:, :, None]], axis=2)
+    ate = {}
+    for name, poses in est.items():
+        if poses.shape != (N_FRAMES, 3, 4) or not np.isfinite(poses).all():
+            raise AssertionError(f"{name}: result file holds {poses.shape}")
+        if np.abs(poses[0] - np.eye(4)[:3]).max() > 1e-6:
+            raise AssertionError(f"{name}: row 0 is not the identity")
+        ate[name] = ate_rmse(poses, gt)
+        if ate[name] >= KITTI_ATE_TOL_M:
+            raise AssertionError(f"{name}: ATE {ate[name]:.4f} m")
+    gap = _check_same_card("chunked vs fused file", est["chunked"][:, :, 3],
+                           est["fused"][:, :, 3])
+    gap9 = _check_same_card("fused file vs phase 9", est["fused"][:, :, 3],
+                            p9["positions"])
+    print(f"[10 kitti] {N_FRAMES}-frame KITTI folder -> pose files | chunked "
+          f"(K={KITTI_CHUNK}) {fps['chunked']:.2f} frames/s, fused per frame "
+          f"{fps['fused']:.2f} frames/s (host wall over all {N_FRAMES} "
+          "frames, reader thread and pose writer included, graphs captured "
+          f"before) against {p9['fps']:.2f} (phase 9) and {p5['fps']:.2f} "
+          f"(phase 5, staged) | ATE chunked {ate['chunked']:.4f} m fused "
+          f"{ate['fused']:.4f} m | max |chunked - fused| {gap * 1e3:.4f} mm, "
+          f"|fused - fused (phase 9)| {gap9 * 1e3:.4f} mm "
+          f"| launches {launches} | peak memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    return {name: sum(run[name] for run in launches.values())
+            for name in launches["chunked"]}
+
+
+def phase_checkpoint(kernels, p5) -> dict:
+    """Phase 11: save after frame 6, resume in a fresh Pipeline, compare
+    frame 7; export the map as PLY.  The uninterrupted run repeats phase
+    5's first 8 frames: the gap between the two staged runs is printed."""
+    cfg = PROFILES["hdl64"]
+    frames = list(synthetic_frames(8, cfg, n_azimuth=1800, speed=1.0, seed=0))
+    for k in kernels:
+        k.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    a = Pipeline(cfg, device="cuda")
+    with tempfile.TemporaryDirectory() as root:
+        for _, xyz, mask in frames[:7]:
+            a.process_frame(xyz, mask)
+        ckpt = os.path.join(root, "frame6.npz")
+        t0 = time.perf_counter()
+        a.save(ckpt)
+        save_s = time.perf_counter() - t0
+        size = os.path.getsize(ckpt)
+        ra = a.process_frame(*frames[7][1:])
+        b = Pipeline(cfg, device="cuda")
+        t0 = time.perf_counter()
+        b.load(ckpt)
+        load_s = time.perf_counter() - t0
+        rb = b.process_frame(*frames[7][1:])
+        gaps = {name: float(np.abs(getattr(ra, name)
+                                   - getattr(rb, name)).max())
+                for name in ("odom_q", "odom_t", "map_q", "map_t")}
+        if max(gaps.values()) > SAME_CARD_TOL_M:
+            raise AssertionError(f"frame 7 after the resume differs: {gaps}")
+        if not np.array_equal(a.mapped_positions()[:7],
+                              b.mapped_positions()[:7]):
+            raise AssertionError("the mapped history did not survive")
+        rerun = _check_same_card("phase 11 vs phase 5", a.mapped_positions(),
+                                 p5["positions"][:8])
+        counts = b.export_map(os.path.join(root, "map"))
+        for name, store in (("corner", b.map_state.corner),
+                            ("surf", b.map_state.surf)):
+            with open(os.path.join(root, f"map_{name}.ply")) as f:
+                head = [next(f).strip() for _ in range(3)]
+            live = int(store.mask.sum())
+            if counts[name] != live or head[2] != f"element vertex {live}":
+                raise AssertionError(f"{name} PLY: {counts[name]} points, "
+                                     f"{head[2]!r}, store holds {live}")
+    launches = {k.source.name: k.launches for k in kernels}
+    want = expected_launches(cfg, 9, 9)
+    if launches != want:
+        raise AssertionError(f"launches {launches} != {want}")
+    print(f"[11 checkpoint] saved after frame 6 ({size / 2**20:.1f} MiB, "
+          f"{save_s:.2f} s), loaded into a fresh Pipeline ({load_s:.2f} s) | "
+          f"frame 7 resumed vs uninterrupted, max abs: "
+          + " ".join(f"{n} {g:.2e}" for n, g in gaps.items())
+          + f" (limit {SAME_CARD_TOL_M}) | max |staged - staged (phase 5)| "
+          f"over 8 frames {rerun * 1e3:.4f} mm | PLY points {counts} | "
+          f"launches {launches}")
+    return launches
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -637,8 +924,12 @@ def main() -> int:
     p8 = phase_pipeline("8 undistort + occlusion", undistort_config(),
                         UNDISTORT_N_FRAMES, JAX_UNDISTORT_MAPPED_POSITIONS,
                         kernels)
-    launches = {name: sum(p["launches"][name] for p in (p5, p6, p7, p8))
-                for name in p5["launches"]}
+    p9 = phase_fused(kernels, p5)
+    phase_merge_calls(p9["pipe"])
+    p10 = phase_kitti(kernels, p5, p9)
+    p11 = phase_checkpoint(kernels, p5)
+    launches = {name: sum(p["launches"][name] for p in (p5, p6, p7, p8, p9))
+                + p10[name] + p11[name] for name in p5["launches"]}
 
     surf = knn[("surf", "below")]
     odo = vote[VOTE_SHAPES[0]]

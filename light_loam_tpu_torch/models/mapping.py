@@ -19,13 +19,19 @@ Per frame (``mapping_step``, ref:1502-2354):
   5. transformUpdate (ref:119-123,2101);
   6. register the stacks into the map + voxel dedup (ref:2104-2168).
 
-Whether the grid recentered decides, on the host, between the sorted
-merge and the full re-sort: one device-to-host read per mapped frame.
+Whether the grid recentered decides between the sorted merge and the full
+re-sort.  The staged path decides on the host: one device-to-host read per
+mapped frame.  With ``host_branch=False`` (the fused frame, which a CUDA
+graph replays and which therefore cannot branch on the host) the step
+computes both stores and selects on the device; the selected store is the
+one the host branch would have returned.
 """
 
 from __future__ import annotations
 
 from typing import NamedTuple, Tuple
+
+import math
 
 import torch
 
@@ -107,6 +113,34 @@ def check_mapping_config(cfg: MappingConfig) -> None:
                          f"{cfg.map_store_mode!r}")
     if cfg.vote_mode not in graphvote.VOTE_MODES:
         raise ValueError(f"unknown MappingConfig.vote_mode={cfg.vote_mode!r}")
+
+
+def rslidar_quat_remap(q: torch.Tensor) -> torch.Tensor:
+    """The high-frequency publish path's dataset-frame quirk
+    (laserMapping.cpp:189-242): decompose to roll/pitch/yaw, add +π/2 to
+    roll and yaw, recompose, then shuffle coefficients as
+    (x,y,z,w) ← (q_after.y, −q_after.x, q_after.w, −q_after.z).
+
+    This is an rslidar frame convention hack the reference applies only on
+    /aft_mapped_to_init_high_frec (the main-path pose write at
+    laserMapping.cpp:2266-2269 publishes the plain quaternion); provided
+    for behavioural parity of that topic."""
+    x, y, z, w = q.unbind(-1)
+    roll = torch.atan2(2 * (w * x + y * z), 1 - 2 * (x * x + y * y))
+    sinp = 2 * (w * y - z * x)
+    pitch = torch.where(sinp.abs() >= 1, torch.sign(sinp) * (math.pi / 2),
+                        torch.arcsin(torch.clamp(sinp, -1.0, 1.0)))
+    yaw = torch.atan2(2 * (w * z + x * y), 1 - 2 * (y * y + z * z))
+    roll = roll + math.pi / 2
+    yaw = yaw + math.pi / 2
+    cy, sy = torch.cos(yaw * 0.5), torch.sin(yaw * 0.5)
+    cp, sp = torch.cos(pitch * 0.5), torch.sin(pitch * 0.5)
+    cr, sr = torch.cos(roll * 0.5), torch.sin(roll * 0.5)
+    qa_w = cy * cp * cr + sy * sp * sr
+    qa_x = cy * cp * sr - sy * sp * cr
+    qa_y = sy * cp * sr + cy * sp * cr
+    qa_z = sy * cp * cr - cy * sp * sr
+    return torch.stack([qa_y, -qa_x, qa_w, -qa_z], dim=-1)
 
 
 def _dims(cfg: MappingConfig):
@@ -274,22 +308,58 @@ def _merge_full(store: MapStore, new_xyz, new_cell, new_mask,
 
 
 def _merge_into_store(store: MapStore, new_xyz, new_mask, cen, cfg,
-                      leaf: float, capacity: int,
-                      recentered: bool) -> MapStore:
+                      leaf: float, capacity: int, recentered) -> MapStore:
     """Register a frame's stack into the map store (ref:2104-2168); points
     outside the grid are dropped (ref:2119-2121).  Between recenters
     (rows are only evicted there) the sorted merge applies; recenter
-    frames, and map_store_mode="resort", re-sort the whole store."""
+    frames, and map_store_mode="resort", re-sort the whole store.
+    ``recentered`` is a Python bool, or a bool tensor: then both merges run
+    and the store is selected on the device."""
     ijk = _cube_of(new_xyz, cen, cfg)
     inside = _inside(ijk, cfg)
     new_cell = torch.where(inside, _cell_linear(ijk, cfg),
                            torch.zeros_like(ijk[:, 0])).to(torch.int32)
     new_mask = new_mask & inside
-    if recentered or cfg.map_store_mode == "resort":
+    if cfg.map_store_mode == "resort":
+        recentered = True
+    if recentered is True:
         return _merge_full(store, new_xyz, new_cell, new_mask, leaf, capacity)
-    xyz, cell, mask = merge_sorted(store.xyz, store.cell, store.mask,
-                                   new_xyz, new_cell, new_mask, leaf)
-    return MapStore(xyz=xyz, cell=cell, mask=mask)
+    merged = MapStore(*merge_sorted(store.xyz, store.cell, store.mask,
+                                    new_xyz, new_cell, new_mask, leaf))
+    if recentered is False:
+        return merged
+    full = _merge_full(store, new_xyz, new_cell, new_mask, leaf, capacity)
+    return MapStore(*(torch.where(recentered, f, m)
+                      for f, m in zip(full, merged)))
+
+
+def surround_cloud(state: MappingState, t_w: torch.Tensor, cfg: MappingConfig,
+                   capacity: int = 131072):
+    """Points of the 5×5×3 cells around the pose — the /laser_cloud_surround
+    output the reference publishes every 5 frames (laserMapping.cpp:2173-2188).
+    Returns (xyz (capacity,3), mask)."""
+    center = _cube_of(t_w[None, :], state.cen, cfg)[0]
+    cx, cm, _ = _gather_local(state.corner, center, cfg, capacity)
+    sx, sm, _ = _gather_local(state.surf, center, cfg, capacity)
+    out_mask, out_xyz = compact_rows(torch.cat([cm, sm]), capacity,
+                                     torch.cat([cx, sx]))
+    return out_xyz, out_mask
+
+
+def full_map_cloud(state: MappingState):
+    """All cells' points — the /laser_cloud_map output published every 20
+    frames (laserMapping.cpp:2190-2203).  Returns (xyz, mask) pairs for
+    (corner, surf)."""
+    return (
+        (state.corner.xyz, state.corner.mask),
+        (state.surf.xyz, state.surf.mask),
+    )
+
+
+def register_cloud(q_w: torch.Tensor, t_w: torch.Tensor, xyz: torch.Tensor):
+    """Transform a frame's cloud into the map frame — the
+    /velodyne_cloud_registered output (laserMapping.cpp:2205-2215)."""
+    return quat.quat_rotate(q_w[None, :], xyz) + t_w[None, :]
 
 
 def _neighbours(stack_xyz, n_stack, local_xyz, local_mask, n_local, q_w, t_w,
@@ -314,6 +384,7 @@ def mapping_step(
     q_odom: torch.Tensor,
     t_odom: torch.Tensor,
     cfg: MappingConfig,
+    host_branch: bool = True,
 ) -> Tuple[MappingState, MappingOutput]:
     check_mapping_config(cfg)
     # 1. initial guess from odometry (ref:113-117)
@@ -392,7 +463,9 @@ def mapping_step(
     t_wm = t_w - quat.quat_rotate(q_wm, t_odom)
 
     # 6. register the stacks into the map (host branch: one sync)
-    recentered = bool(torch.any(cen != state.cen))
+    recentered = torch.any(cen != state.cen)
+    if host_branch:
+        recentered = bool(recentered)
     reg_c = quat.quat_rotate(q_w[None, :], stack_c_xyz) + t_w[None, :]
     reg_s = quat.quat_rotate(q_w[None, :], stack_s_xyz) + t_w[None, :]
     corner_store = _merge_into_store(

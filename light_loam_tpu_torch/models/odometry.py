@@ -29,7 +29,10 @@ surf search.  With ``surf_knn="tiled"`` the stored less-flat cloud is
 compacted to a live prefix at the hand-off, and the step reads that
 cloud's live count to the host once, before the outer loop, so each pass
 visits only the live tiles: one device-to-host read per frame, none per
-outer iteration.
+outer iteration.  With ``read_live_count=False`` (the fused frame, which a
+CUDA graph replays and which therefore cannot read to the host) the sweep
+covers every tile instead; masked rows cannot win, so the matches are the
+same.
 """
 
 from __future__ import annotations
@@ -50,7 +53,6 @@ from light_loam_tpu_torch.solver import (
     lm_solve,
     make_plane_factors,
 )
-
 
 
 class OdometryState(NamedTuple):
@@ -137,6 +139,7 @@ def odometry_step(
     feats: ScanFeatures,
     cfg: OdometryConfig,
     scan_period: float = 0.1,
+    read_live_count: bool = True,
 ) -> Tuple[OdometryState, OdometryOutput]:
     check_odometry_config(cfg)
     sharp, flat = feats.sharp, feats.flat
@@ -152,7 +155,8 @@ def odometry_step(
     tiled = cfg.surf_knn == "tiled"
     # the one device-to-host read of the tiled path: the live prefix of
     # the cloud compacted at the last hand-off
-    surf_ref_count = int(surf_last.count()) if tiled else None
+    surf_ref_count = (int(surf_last.count())
+                      if tiled and read_live_count else None)
 
     corner_valid = torch.zeros_like(sharp.mask)
     plane_valid = torch.zeros_like(flat.mask)

@@ -1,12 +1,12 @@
 """End-to-end SLAM pipeline: the host frame loop replacing the reference's
 four ROS processes and pub/sub topics (SURVEY.md §1 dataflow).
 
-Counterpart of ``light_loam_tpu/models/pipeline.py`` (staged path).  Per
-frame:
+Counterpart of ``light_loam_tpu/models/pipeline.py``.  Per frame:
 
     raw cloud ──▶ extract_features ──▶ odometry_step ──▶ mapping_step
 
-all on the Pipeline's ``device``.  The reference's back-pressure — mapping
+all on the Pipeline's ``device``, as three staged steps or, with
+``PipelineConfig.fused_step``, as one device program (models/fused.py).  The reference's back-pressure — mapping
 drops frames while it is busy (laserMapping.cpp:1571-1575) — is kept: a
 mapping step is dispatched only when the previous one has retired (a CUDA
 event recorded after the step has completed), otherwise the frame is
@@ -17,6 +17,7 @@ default) every step retires before its frame returns.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import os
 import time
 from dataclasses import dataclass, field
@@ -33,6 +34,7 @@ from light_loam_tpu_torch.config import (
     VLP16,
     PipelineConfig,
 )
+from light_loam_tpu_torch.core import quaternion as quat
 from light_loam_tpu_torch.models.mapping import (
     MappingState,
     check_mapping_config,
@@ -94,9 +96,6 @@ class Pipeline:
 
     def __post_init__(self):
         self.device = resolve_device(self.device)
-        if self.cfg.fused_step:
-            raise NotImplementedError(
-                "PipelineConfig.fused_step=True is not ported to PyTorch yet")
         check_scan_config(self.cfg.scan)
         check_odometry_config(self.cfg.odometry)
         check_mapping_config(self.cfg.mapping)
@@ -167,6 +166,12 @@ class Pipeline:
     def process_frame(self, xyz: np.ndarray, mask: np.ndarray) -> FrameResult:
         cfg = self.cfg
         dev = self.device
+        if (
+            cfg.fused_step
+            and cfg.sync_mapping
+            and self.frame % cfg.odometry.skip_frame_num == 0
+        ):
+            return self._process_frame_fused(xyz, mask)
         with self.timers.stage("features"):
             feats = extract_features(
                 torch.as_tensor(xyz, dtype=torch.float32).to(dev),
@@ -227,6 +232,44 @@ class Pipeline:
         self.timers.frame_done()
         return result
 
+    def _process_frame_fused(self, xyz: np.ndarray, mask: np.ndarray) -> FrameResult:
+        """Latency mode: the whole frame as one program (models/fused.py).
+
+        Bookkeeping (keyframe buffering, trajectory, saturation watch) is
+        shared with the staged path via the pending/_retire_mapping
+        machinery; mapping retires synchronously because this path only
+        engages with sync_mapping.
+        """
+        from light_loam_tpu_torch.models.fused import fused_frame_step
+
+        with self.timers.stage("fused_step"):
+            self.odo_state, new_state, odo, map_out, diverged = fused_frame_step(
+                self.odo_state, self.map_state,
+                torch.as_tensor(xyz, dtype=torch.float32),
+                torch.as_tensor(mask, dtype=torch.bool), self.cfg,
+            )
+        # enqueue the keyframe-stack downsample BEFORE any host read so it
+        # queues behind the fused program on the device; the first read
+        # below then covers both in one wait
+        kf_stack = self._keyframe_stack()
+        odo_q = odo.q_w.cpu().numpy()
+        odo_t = odo.t_w.cpu().numpy()
+        if bool(diverged):
+            self.diverged_frames += 1
+        else:
+            self._last_odo_pose = (odo_q, odo_t)
+        self._pending_map_out = map_out
+        self._pending_map_state = new_state
+        self._pending_kf = (odo_q, odo_t, *kf_stack)
+        self._retire_mapping(wait=True)
+        result = FrameResult(
+            frame=self.frame, odom_q=odo_q, odom_t=odo_t, mapped=True,
+            map_q=self._last_map_pose[0], map_t=self._last_map_pose[1],
+        )
+        self.frame += 1
+        self.timers.frame_done()
+        return result
+
     def _keyframe_stack(self, stack_points: int = 2048):
         """(stack_xyz, stack_mask) of the surf cloud a mapping step is about
         to consume — captured at dispatch, buffered at retirement."""
@@ -236,6 +279,65 @@ class Pipeline:
             self.cfg.mapping.plane_resolution, stack_points,
         )
         return sx, sm
+
+    # -- checkpoint / resume (snapshot of map + pose state) --------------
+    def save(self, path: str) -> None:
+        from light_loam_tpu_torch.utils.checkpoint import save_state
+
+        self._retire_mapping(wait=True)
+        extra = {
+            # divergence-containment fallback poses must survive resume:
+            # without them a non-finite pose on the first post-resume frame
+            # would reset the world pose to the identity (origin)
+            "last_odo_q": self._last_odo_pose[0],
+            "last_odo_t": self._last_odo_pose[1],
+            "last_map_q": self._last_map_pose[0],
+            "last_map_t": self._last_map_pose[1],
+        }
+        if self._map_trajectory:
+            extra["map_trajectory"] = np.stack(self._map_trajectory)
+            extra["map_quats"] = np.stack(self._map_quats)
+        save_state(path, self.odo_state, self.map_state, frame=self.frame,
+                   extra=extra)
+
+    def load(self, path: str) -> None:
+        from light_loam_tpu_torch.utils.checkpoint import load_state
+
+        self.odo_state, self.map_state, self.frame, extra = load_state(
+            path, self.odo_state, self.map_state
+        )
+        traj = extra.get("map_trajectory")
+        self._map_trajectory = [] if traj is None else list(traj)
+        quats = extra.get("map_quats")
+        if quats is None and self._map_trajectory:
+            # legacy checkpoint (trajectory saved before quats were):
+            # identity rotations keep the lists in lockstep so
+            # mapped_trajectory()/save() don't crash on np.stack.  The
+            # package layout is xyzw (identity == [0,0,0,1]); [1,0,0,0]
+            # here would be a 180-deg x-rotation silently persisted as
+            # real data on the next save().
+            quats = [np.asarray([0.0, 0.0, 0.0, 1.0], np.float32)
+                     for _ in self._map_trajectory]
+        self._map_quats = [] if quats is None else list(quats)
+        # restore containment fallbacks (older checkpoints without the
+        # extras fall back to the restored odometry/mapping state poses)
+        if "last_odo_q" in extra:
+            self._last_odo_pose = (
+                np.asarray(extra["last_odo_q"], np.float32),
+                np.asarray(extra["last_odo_t"], np.float32),
+            )
+        else:
+            self._last_odo_pose = (
+                self.odo_state.q_w.cpu().numpy().astype(np.float32),
+                self.odo_state.t_w.cpu().numpy().astype(np.float32),
+            )
+        if "last_map_q" in extra:
+            self._last_map_pose = (
+                np.asarray(extra["last_map_q"], np.float32),
+                np.asarray(extra["last_map_t"], np.float32),
+            )
+        else:
+            self._last_map_pose = self.high_freq_pose(*self._last_odo_pose)
 
     def mapped_positions(self) -> np.ndarray:
         """(N, 3) mapped positions of every retired mapping step (the
@@ -252,6 +354,30 @@ class Pipeline:
         if not self._map_trajectory:
             return np.zeros((0, 4), np.float32), np.zeros((0, 3), np.float32)
         return np.stack(self._map_quats), np.stack(self._map_trajectory)
+
+    # -- map exports (the /laser_cloud_surround, /laser_cloud_map rviz
+    #    surface, laserMapping.cpp:2171-2203) ---------------------------
+    def export_map(self, path_prefix: str) -> dict:
+        from light_loam_tpu_torch.models.mapping import full_map_cloud
+        from light_loam_tpu_torch.utils.export import write_ply
+
+        self._retire_mapping(wait=True)
+        (cx, cm), (sx, sm) = full_map_cloud(self.map_state)
+        n_c = write_ply(f"{path_prefix}_corner.ply", cx.cpu().numpy(),
+                        cm.cpu().numpy())
+        n_s = write_ply(f"{path_prefix}_surf.ply", sx.cpu().numpy(),
+                        sm.cpu().numpy())
+        return {"corner": n_c, "surf": n_s}
+
+    # -- current best pose (the high-frequency publish path,
+    #    laserMapping.cpp:168-247, without the rslidar Euler remap) ------
+    def high_freq_pose(self, odo_q: np.ndarray, odo_t: np.ndarray):
+        ms = self.map_state
+        q_odo = torch.as_tensor(odo_q, dtype=torch.float32).to(self.device)
+        t_odo = torch.as_tensor(odo_t, dtype=torch.float32).to(self.device)
+        q = quat.quat_multiply(ms.q_wm, q_odo)
+        t = quat.quat_rotate(ms.q_wm, t_odo) + ms.t_wm
+        return q.cpu().numpy(), t.cpu().numpy()
 
 
 def synthetic_frames(
@@ -283,11 +409,14 @@ def run_synthetic(
     n_azimuth: int = 1800,
     speed: float = 1.0,
     seed: int = 0,
+    fused: bool = False,
     device: str = "cuda",
 ):
     """Drive the pipeline over a simulated straight run; returns
     (pipeline, results, true positions)."""
     cfg = PROFILES[profile]
+    if fused:
+        cfg = dataclasses.replace(cfg, fused_step=True)
     pipe = Pipeline(cfg, device=device)
     results = []
     truth = []
@@ -299,23 +428,140 @@ def run_synthetic(
     return pipe, results, np.asarray(truth)
 
 
+def _rotation_matrix(q: np.ndarray) -> np.ndarray:
+    return quat.quat_to_matrix(torch.as_tensor(q)).numpy()
+
+
+def run_kitti(
+    dataset_folder: str,
+    sequence: str,
+    result_path: str,
+    profile: str = "hdl64",
+    max_frames: Optional[int] = None,
+    pose_source: str = "mapped",
+    fused: bool = False,
+    chunk_size: int = 0,
+    device: str = "cuda",
+):
+    """KITTI sequence → trajectory file (the reference's RESULT_PATH
+    artifact, laserMapping.cpp:2284-2326).
+
+    ``pose_source``:
+      * "mapped" (default, reference-faithful): one row per *retired*
+        mapping step, written from the mapping thread's own poses like
+        laserMapping.cpp:2284-2326 — under back-pressure drops the file
+        has fewer rows than input frames, exactly like the reference;
+      * "high_freq": one row per input frame from the low-latency
+        composed pose (the /aft_mapped_to_init_high_frec analog,
+        laserMapping.cpp:168-247) — denser but odometry-grade on frames
+        mapping dropped.
+
+    ``chunk_size`` > 1 switches to the offline chunked runner
+    (models/fused.run_chunked): K frames per host read — the fastest way
+    to replay a whole sequence.  Implies pose_source="mapped" semantics
+    with every frame mapping (no drop policy, no skip decimation); returns
+    the ChunkOutput instead of a Pipeline.
+    """
+    from light_loam_tpu_torch.io.kitti import KittiPoseWriter, KittiSequence
+
+    if pose_source not in ("mapped", "high_freq"):
+        raise ValueError(f"unknown pose_source: {pose_source!r}")
+    cfg = PROFILES[profile]
+    if fused:
+        cfg = dataclasses.replace(cfg, fused_step=True)
+    device = resolve_device(device)
+    seq = KittiSequence(dataset_folder, sequence)
+    writer = KittiPoseWriter(result_path)
+    n = len(seq) if max_frames is None else min(len(seq), max_frames)
+
+    def frame_stream():
+        count = 0
+        for _ts, xyz, mask in seq.padded_frames(cfg.scan.max_points):
+            if count >= n:
+                break
+            yield xyz, mask
+            count += 1
+
+    if chunk_size and chunk_size > 1:
+        from light_loam_tpu_torch.models.fused import run_chunked
+
+        _, _, outs = run_chunked(frame_stream(), cfg, chunk_size=chunk_size,
+                                 device=device)
+        for q, t in zip(outs.map_q, outs.map_t):
+            writer.write(_rotation_matrix(q), t)
+        return outs
+
+    pipe = Pipeline(cfg, device=device)
+    for xyz, mask in frame_stream():
+        res = pipe.process_frame(xyz, mask)
+        if pose_source == "high_freq":
+            q, t = pipe.high_freq_pose(res.odom_q, res.odom_t)
+            writer.write(_rotation_matrix(q), t)
+    pipe._retire_mapping(wait=True)
+    if pose_source == "mapped":
+        for q, t in zip(*pipe.mapped_trajectory()):
+            writer.write(_rotation_matrix(q), t)
+    return pipe
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(
         description="light_loam_tpu_torch SLAM pipeline (PyTorch/CUDA)")
-    ap.add_argument("--synthetic", action="store_true",
-                    help="run on the synthetic world (the only input the "
-                         "port reads so far)")
-    ap.add_argument("--frames", type=int, default=20)
+    ap.add_argument("--dataset", help="KITTI dataset folder (kittiHelper layout)")
+    ap.add_argument("--sequence", default="04")
+    ap.add_argument("--result", default="trajectory.txt")
     ap.add_argument("--profile", default="hdl64", choices=sorted(PROFILES))
+    ap.add_argument("--frames", type=int, default=None)
+    ap.add_argument("--synthetic", action="store_true",
+                    help="run on the synthetic world instead of KITTI data")
+    ap.add_argument("--fused", action="store_true",
+                    help="latency mode: run each frame as ONE device "
+                         "program (models/fused.py; on a card, one CUDA "
+                         "graph replay) instead of three staged steps")
+    ap.add_argument("--chunk", type=int, default=0, metavar="K",
+                    help="offline mode: replay K frames per host read "
+                         "(models/fused.run_chunked) — fastest whole-"
+                         "sequence replay; every frame maps")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
-    if not args.synthetic:
-        ap.error("only --synthetic input is ported so far")
+
     t0 = time.time()
-    pipe, results, truth = run_synthetic(
-        n_frames=args.frames, profile=args.profile, device=args.device)
-    err = np.linalg.norm(results[-1].odom_t - truth[-1])
-    print(f"frames: {len(results)}  final pose error: {err:.3f} m")
+    if args.synthetic or not args.dataset:
+        n = args.frames or 20
+        if args.chunk > 1:
+            from light_loam_tpu_torch.models.fused import run_chunked
+
+            cfg = PROFILES[args.profile]
+            frames = synthetic_frames(n, cfg)
+            truth = []
+
+            def stream():
+                for pos, xyz, mask in frames:
+                    truth.append(pos)
+                    yield xyz, mask
+
+            _, _, outs = run_chunked(stream(), cfg, chunk_size=args.chunk,
+                                     device=resolve_device(args.device))
+            err = np.linalg.norm(outs.map_t[-1] - truth[-1])
+            print(f"frames: {n} (chunk={args.chunk})  "
+                  f"final mapped pose error: {err:.3f} m")
+            print(f"wall: {time.time() - t0:.2f}s")
+            return
+        pipe, results, truth = run_synthetic(
+            n_frames=n, profile=args.profile, fused=args.fused,
+            device=args.device)
+        err = np.linalg.norm(results[-1].odom_t - truth[-1])
+        print(f"frames: {len(results)}  final pose error: {err:.3f} m")
+    else:
+        out = run_kitti(args.dataset, args.sequence, args.result,
+                        args.profile, args.frames, fused=args.fused,
+                        chunk_size=args.chunk, device=args.device)
+        print(f"trajectory written to {args.result}")
+        if args.chunk > 1:
+            print(f"wall: {time.time() - t0:.2f}s  (chunked replay, "
+                  f"{args.chunk} frames per host read)")
+            return
+        pipe = out
     print(f"wall: {time.time() - t0:.2f}s  dropped mapping frames: "
           f"{pipe.dropped_mapping_frames}")
     print(pipe.timers.report())

@@ -71,8 +71,10 @@ def compute_rel_time(
     m = in_mask.to(torch.int32)
     first = torch.argmax(m)
     last = n - 1 - torch.argmax(torch.flip(m, (0,)))
-    start_ori = ori_raw[first]
-    end_ori = ori_raw[last] + 2.0 * math.pi
+    # gather, not ori_raw[first]: indexing with a 0-d tensor reads it to
+    # the host
+    start_ori = ori_raw.gather(0, first[None])[0]
+    end_ori = ori_raw.gather(0, last[None])[0] + 2.0 * math.pi
     span = end_ori - start_ori
     end_ori = torch.where(
         span > 3.0 * math.pi,

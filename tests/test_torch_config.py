@@ -49,6 +49,12 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import light_loam_tpu_torch.models.pipeline\n"
         "import light_loam_tpu_torch.convert\n"
+        "import light_loam_tpu_torch.models.fused\n"
+        "import light_loam_tpu_torch.io.kitti\n"
+        "import light_loam_tpu_torch.io.evaluation\n"
+        "import light_loam_tpu_torch.core.pose\n"
+        "import light_loam_tpu_torch.utils.checkpoint\n"
+        "import light_loam_tpu_torch.utils.export\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m == 'jax' or m.startswith(('jax.', 'light_loam_tpu.')))\n"
         "assert not bad, bad\n"
@@ -81,8 +87,8 @@ def test_cuda_pipeline_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("section,field,value,error", [
-    (None, "fused_step", True, NotImplementedError),
     ("scan", "lessflat_mode", "runs", NotImplementedError),
+    ("scan", "lessflat_mode", "bogus", ValueError),
     ("odometry", "plane_vote_mode", "bogus", ValueError),
     ("mapping", "vote_mode", "bogus", ValueError),
     ("mapping", "knn_k", 4, ValueError),
@@ -90,10 +96,18 @@ def test_cuda_pipeline_raises_without_cuda(monkeypatch):
 def test_unported_options_raise(section, field, value, error):
     """Refused when the Pipeline is built, before any frame."""
     cfg = torch_pipeline.PROFILES["hdl64-small"]
-    if section is None:
-        cfg = dataclasses.replace(cfg, **{field: value})
-    else:
-        sub = dataclasses.replace(getattr(cfg, section), **{field: value})
-        cfg = dataclasses.replace(cfg, **{section: sub})
+    sub = dataclasses.replace(getattr(cfg, section), **{field: value})
+    cfg = dataclasses.replace(cfg, **{section: sub})
     with pytest.raises(error):
         torch_pipeline.Pipeline(cfg, device="cpu")
+
+
+def test_fused_step_builds():
+    """``fused_step=True`` (models/fused.py) is ported: the Pipeline
+    builds, and on the CPU captures nothing."""
+    cfg = dataclasses.replace(torch_pipeline.PROFILES["hdl64-small"],
+                              fused_step=True)
+    assert torch_pipeline.Pipeline(cfg, device="cpu").cfg.fused_step
+    from light_loam_tpu_torch.models import fused
+
+    assert not fused._GRAPHS

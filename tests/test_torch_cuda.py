@@ -23,6 +23,17 @@ to the same call on CPU tensors, and the tiled surf search to the grid
 search, by the same float64 rules (``full_vote_margins``); the pipeline's
 launch counts are derived from its config (``chip_smoke.expected_launches``)
 with the vote path off and with the latent vote path on.
+
+The fused frame (models/fused.py) replays a CUDA graph of the very ops the
+eager body enqueues, so graph and eager differ only by the order of the
+atomic adds in the voxel sums (ops/voxel.py).  That order changes from run
+to run, a centroid's last bit with it, and through the float32 plane-fit
+gates (ROADMAP.md Queue 3) the trajectory: on an H100 two runs of the same
+frames are millimetres apart after a few frames, two staged runs as much as
+a staged and a fused one (``chip_smoke.py`` phases 9-11 print the gaps).  So
+every comparison of two runs on the card is held to 3 cm, the JAX package's
+own band between its chunked and per-frame programs (tests/test_fused.py).  The test of a failed capture comes last
+in the file: it leaves a broken capture behind it.
 """
 
 import dataclasses
@@ -34,7 +45,10 @@ import torch
 
 from chip_smoke import expected_launches, latent_vote_config
 from light_loam_tpu_torch.core.frame import PointCloud
+from light_loam_tpu_torch.models import fused
 from light_loam_tpu_torch.models import pipeline as tpl
+from light_loam_tpu_torch.models.mapping import MappingState
+from light_loam_tpu_torch.models.odometry import OdometryState
 from light_loam_tpu_torch.ops import cuda_build
 from light_loam_tpu_torch.ops.cuda_knn import (
     KNN5,
@@ -475,3 +489,148 @@ def _run_synthetic(cfg, run, device):
     frames = tpl.synthetic_frames(run["n_frames"], cfg, run["n_azimuth"],
                                   run["speed"], run["seed"])
     return pipe, [pipe.process_frame(xyz, mask) for _, xyz, mask in frames]
+
+
+# two runs on the card, graph or eager (module docstring)
+GRAPH_ATOL_M = 0.03
+
+
+def _small_frames(cfg, n, device):
+    return [(torch.as_tensor(xyz).to(device), torch.as_tensor(mask).to(device))
+            for _, xyz, mask in tpl.synthetic_frames(n, cfg, 700, 0.6, 2)]
+
+
+def _init_states(cfg, device):
+    return (OdometryState.init(cfg.scan.max_less_sharp,
+                               cfg.scan.max_less_flat, device),
+            MappingState.init(cfg.mapping, device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("surf_knn", ["auto", "tiled"])
+def test_graph_replay_matches_eager_body(cuda, monkeypatch, surf_knn):
+    """Three frames through ``fused_frame_step`` (one capture, then one
+    replay per frame, no eager pass) and through the eager body on the
+    same states; under the tiled search the call makes no host read."""
+    base = tpl.PROFILES["hdl64-small"]
+    cfg = dataclasses.replace(
+        base, frame_budget_ms=41.0,  # a config of this test's own
+        odometry=dataclasses.replace(base.odometry, surf_knn=surf_knn))
+    frames = _small_frames(cfg, 3, cuda)
+    body_calls = []
+    real_body = fused._fused_frame_body
+    monkeypatch.setattr(fused, "_fused_frame_body",
+                        lambda *a: body_calls.append(1) or real_body(*a))
+    fused.clear_graphs()
+    graph = fused.frame_graph(cfg, cuda)
+    assert len(body_calls) == fused.WARMUP_PASSES + 1
+    assert ({k.source.name: n for k, n in graph.kernel_launches.items()}
+            == expected_launches(cfg, 1, 1))
+
+    KNN5.launches = VOTE.launches = 0
+    odo_g, map_g = _init_states(cfg, cuda)
+    odo_e, map_e = _init_states(cfg, cuda)
+    for xyz, mask in frames:
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            odo_g, map_g, out_g, mout_g, div_g = fused.fused_frame_step(
+                odo_g, map_g, xyz, mask, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        odo_e, map_e, out_e, mout_e, div_e = real_body(odo_e, map_e, xyz,
+                                                       mask, cfg)
+        assert not bool(div_g) and not bool(div_e)
+        for got, want in ((out_g.t_w, out_e.t_w), (out_g.q_w, out_e.q_w),
+                          (mout_g.t_w, mout_e.t_w), (mout_g.q_w, mout_e.q_w),
+                          (map_g.t_wm, map_e.t_wm)):
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=0, atol=GRAPH_ATOL_M)
+        # 1 % in map points, the band of tests/test_torch_mapping.py
+        n_surf = int(mout_e.map_surf_points)
+        assert n_surf > 0
+        assert abs(int(mout_g.map_surf_points) - n_surf) <= 0.01 * n_surf
+    # one capture served every frame; the eager body above ran unpatched
+    assert len(body_calls) == fused.WARMUP_PASSES + 1
+    assert graph.replays == 3 and fused.frame_graph(cfg, cuda) is graph
+    # replays count the launches the capture recorded, the eager body its own
+    want = expected_launches(cfg, 6, 6)
+    assert {"vote.cu": VOTE.launches, "knn.cu": KNN5.launches} == want
+    fused.clear_graphs()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("unroll", [1, 3])
+def test_chunk_graph_matches_per_frame_graph(cuda, unroll):
+    """A chunk of 3 frames (replayed frame by frame, or captured as one
+    graph of 3) against three per-frame replays; frames given on the host,
+    as the replay entry points give them."""
+    cfg = dataclasses.replace(tpl.PROFILES["hdl64-small"],
+                              frame_budget_ms=40.0 + unroll)
+    frames = _small_frames(cfg, 3, "cpu")
+    fused.clear_graphs()
+    odo, mp = _init_states(cfg, cuda)
+    per_frame = []
+    for xyz, mask in frames:
+        odo, mp, _, mout, _ = fused.fused_frame_step(odo, mp, xyz, mask, cfg)
+        per_frame.append(mout.t_w.cpu().numpy())
+    chunk = fused.FrameGraph(cfg, cuda, chunk=3, unroll=unroll)
+    odo2, mp2, outs = chunk.run(*_init_states(cfg, cuda),
+                                torch.stack([f[0] for f in frames]),
+                                torch.stack([f[1] for f in frames]))
+    assert chunk.replays == 3 // unroll
+    assert not outs.diverged.any()
+    np.testing.assert_allclose(outs.map_t.cpu().numpy(), np.stack(per_frame),
+                               rtol=0, atol=GRAPH_ATOL_M)
+    np.testing.assert_allclose(odo2.t_w.cpu().numpy(), odo.t_w.cpu().numpy(),
+                               rtol=0, atol=GRAPH_ATOL_M)
+    assert int(mp2.frame) == int(mp.frame) == 3
+    fused.clear_graphs()
+
+
+@pytest.mark.cuda
+def test_fused_pipeline_matches_staged_on_card(cuda):
+    """The Pipeline with ``fused_step`` on the card: the staged run's
+    positions, its bookkeeping, one replay per frame."""
+    base = tpl.PROFILES["hdl64-small"]
+    cfg = dataclasses.replace(base, fused_step=True)
+    run = dict(n_frames=4, n_azimuth=700, speed=0.6, seed=2)
+    fused.clear_graphs()
+    graph = fused.frame_graph(cfg, cuda)
+    KNN5.launches = VOTE.launches = 0
+    pipe, res = _run_synthetic(cfg, run, "cuda")
+    assert graph.replays == 4 and all(r.mapped for r in res)
+    want = expected_launches(cfg, 4, 4)
+    assert {"vote.cu": VOTE.launches, "knn.cu": KNN5.launches} == want
+    staged, sres = _run_synthetic(base, run, "cuda")
+    np.testing.assert_allclose(pipe.mapped_positions(),
+                               staged.mapped_positions(), rtol=0,
+                               atol=GRAPH_ATOL_M)
+    for rf, rs in zip(res, sres):
+        np.testing.assert_allclose(rf.odom_t, rs.odom_t, atol=GRAPH_ATOL_M)
+    assert len(pipe._keyframes) == len(staged._keyframes) == 4
+    assert "fused_step" in pipe.timers.report()
+    fused.clear_graphs()
+
+
+@pytest.mark.cuda
+def test_failed_capture_raises(cuda, monkeypatch):
+    """A body that reads to the host passes its eager warm-up and breaks
+    the capture: the call raises, caches nothing and runs nothing eagerly
+    in the graph's place."""
+    cfg = dataclasses.replace(tpl.PROFILES["hdl64-small"],
+                              frame_budget_ms=39.0)
+    real_step = fused.odometry_step
+    calls = []
+
+    def reads_to_host(state, feats, ocfg, period, **kwargs):
+        calls.append(float(state.t_w.sum()))
+        return real_step(state, feats, ocfg, period, **kwargs)
+
+    monkeypatch.setattr(fused, "odometry_step", reads_to_host)
+    fused.clear_graphs()
+    (xyz, mask), = _small_frames(cfg, 1, cuda)
+    with pytest.raises(RuntimeError):
+        fused.fused_frame_step(*_init_states(cfg, cuda), xyz, mask, cfg)
+    assert not fused._GRAPHS
+    assert len(calls) <= fused.WARMUP_PASSES + 1

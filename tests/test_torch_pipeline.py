@@ -63,9 +63,21 @@ def test_cli_runs_on_cpu(capsys):
     assert "frames: 1" in out and "final pose error" in out
 
 
-def test_cli_needs_synthetic_input():
+def test_cli_needs_synthetic_input(capsys):
+    """Without --dataset the CLI runs the synthetic world, as the JAX
+    package's does; --fused and --chunk apply there too."""
+    small = ["--profile", "hdl64-small", "--device", "cpu"]
+    tpl.main(["--frames", "1", *small])
+    out = capsys.readouterr().out
+    assert "frames: 1" in out and "final pose error" in out
+    assert "features" in out and "fused_step" not in out
+    tpl.main(["--frames", "1", "--fused", *small])
+    assert "fused_step" in capsys.readouterr().out
+    tpl.main(["--frames", "2", "--chunk", "2", *small])
+    assert "frames: 2 (chunk=2)  final mapped pose error" in (
+        capsys.readouterr().out)
     with pytest.raises(SystemExit):
-        tpl.main(["--frames", "1", "--device", "cpu"])
+        tpl.main(["--viz", "prefix", *small])  # not ported: no such flag
 
 
 def test_cli_cuda_without_a_card_raises(monkeypatch):

@@ -13,7 +13,14 @@ FILES = sorted(
 
 
 def test_port_files_found():
-    assert len(FILES) > 20
+    assert len(FILES) > 27
+    names = {str(p.relative_to(REPO)) for p in FILES}
+    assert {"light_loam_tpu_torch/models/fused.py",
+            "light_loam_tpu_torch/io/kitti.py",
+            "light_loam_tpu_torch/io/evaluation.py",
+            "light_loam_tpu_torch/core/pose.py",
+            "light_loam_tpu_torch/utils/checkpoint.py",
+            "light_loam_tpu_torch/utils/export.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
