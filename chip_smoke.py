@@ -34,23 +34,37 @@ exception and a non-zero exit):
      checks;
   9. the fused frame (``fused_step=True``: the whole frame captured once as
      a CUDA graph, one replay per frame) over the 12 frames of phase 5:
-     warm-up and capture seconds, launch counts (those the capture
-     recorded times the replays), mapped positions against the JAX
-     package's and against phase 5's own, the ``fused_step`` stream ms and
-     frames/s; and per-call device ms of the two map-store merges and of
-     the device-side selection between them that the fused frame runs;
+     warm-up and capture seconds, the kernels one traced replay runs against
+     the launches the wrappers counted at capture, mapped positions against
+     the JAX package's and against phase 5's own (3 cm: both runs add with
+     atomics), the ``fused_step`` stream ms and frames/s; and per-call
+     device ms of the two map-store merges and of the registration that
+     runs both and selects;
  10. the chunked replay from a KITTI folder: the 12 frames are written as
      a KITTI-layout sequence (``.bin`` records, ``times.txt``, camera-frame
      ground truth) into a temporary directory, then ``run_kitti`` replays
      it with ``chunk_size=4`` and with ``fused=True`` (reader thread and
      pose writer on the clock): 12 rows each, row 0 the identity, the two
-     files within 1 mm, ATE against the ground truth under 0.30 m;
- 11. checkpoint and export: a staged run saved after frame 6 and loaded
-     into a fresh Pipeline gives the uninterrupted run's frame 7, and
-     ``export_map`` writes two PLY files with the stores' live counts.
+     files within 3 cm, ATE against the ground truth under 0.30 m;
+ 11. checkpoint and export, under deterministic sums: a staged run saved
+     after frame 6 and loaded into a fresh Pipeline gives the uninterrupted
+     run's frame 7 within 1e-5, and ``export_map`` writes two PLY files with
+     the stores' live counts;
+ 12. repeatability, under deterministic sums
+     (``torch.use_deterministic_algorithms``: ``index_add_`` without
+     atomics): the 12 frames staged, fused per frame and chunked, the three
+     trajectories within 1 mm of each other, with the frames/s the ordered
+     sums cost.
 
-The last three lines are a JSON object with each kernel's numbers, the
-card's name and power limit, and ``{"ok": true, "device": {...}}``.
+Launch counts: each kernel's wrapper counts its own launches, and every
+staged phase checks them against the counts derived from its config.  A
+graph replay goes past the wrappers: the fused phases check that the
+wrappers counted nothing, and report replays times the launches counted at
+capture, which a traced replay confirms kernel by kernel.
+
+The last three lines are a JSON object with each kernel's numbers
+(``launches`` from the wrappers over the staged phases, ``graph_launches``
+through replays), the card's name and power limit, and ``{"ok": true, "device": {...}}``.
 Without a CUDA device, or without the ``light_loam_tpu_torch`` package
 beside it, the script fails before printing any result.  It imports
 nothing of JAX.
@@ -59,6 +73,7 @@ nothing of JAX.
 from __future__ import annotations
 
 import concurrent.futures
+import contextlib
 import dataclasses
 import functools
 import json
@@ -76,8 +91,6 @@ from light_loam_tpu_torch.core.frame import PointCloud
 from light_loam_tpu_torch.io.evaluation import ate_rmse
 from light_loam_tpu_torch.io.kitti import gt_to_lidar_frame, read_gt_poses
 from light_loam_tpu_torch.models import fused, mapping
-from light_loam_tpu_torch.models.mapping import MappingState
-from light_loam_tpu_torch.models.odometry import OdometryState
 from light_loam_tpu_torch.models.pipeline import (
     PROFILES,
     Pipeline,
@@ -185,17 +198,20 @@ JAX_UNDISTORT_MAPPED_POSITIONS = np.array([
 ])
 UNDISTORT_N_FRAMES = 8
 POSITION_TOL_M = 0.05
-# Phases 9-11 compare two runs on the same card.  The fused and the chunked
-# frame run the staged path's own stage functions, so the runs differ only
-# by the order of the atomic adds in the voxel sums (ops/voxel.py); but that
-# order changes from run to run, a centroid's last bit with it, and through
-# the float32 plane-fit gates the trajectory: within 12 frames two runs are
-# up to a centimetre apart, two staged runs as much as a staged and a fused
-# one (phases 9-11 print each gap; PERF.md has the numbers).  So two runs
-# are held to 3 cm (the JAX package's own band between its chunked and
-# per-frame programs, tests/test_fused.py), not to the 1 mm or 1e-5 that a
-# deterministic sum would allow.
+# Phases 9 and 10 compare two runs on the same card.  The fused and the
+# chunked frame run the staged path's own stage functions, so the runs differ
+# only by the order of the atomic adds in the voxel sums (index_add_,
+# ops/voxel.py); but that order changes from run to run, a centroid's last
+# bit with it, and through the float32 plane-fit gates the trajectory: within
+# 12 frames two runs are up to a centimetre apart, two staged runs as much as
+# a staged and a fused one.  So runs with atomic sums are held to 3 cm (the
+# JAX package's own band between its chunked and per-frame programs,
+# tests/test_fused.py).  With the sums ordered (phases 11 and 12) the runs
+# measured bitwise equal, and are held to 1 mm and, one frame from one
+# state, to 1e-5.
 SAME_CARD_TOL_M = 0.03
+REPEATABLE_TOL_M = 1e-3
+RESUME_TOL = 1e-5
 KITTI_CHUNK = 4
 KITTI_ATE_TOL_M = 0.30
 # knn5 distances: the Gram form |q|^2 + |r|^2 - 2 q.r rounds at the scale of
@@ -526,12 +542,41 @@ def expected_launches(cfg, n_frames: int, n_mapped: int) -> dict:
     return {"knn.cu": 2 * m.outer_iterations * n_mapped, "vote.cu": votes}
 
 
+# the device functions of csrc/knn.cu and csrc/vote.cu that one launch by
+# the wrapper starts once (knn5 also starts its merge kernel once)
+KERNEL_FUNCTIONS = {"knn.cu": "knn5_segment_kernel",
+                    "vote.cu": "compat_votes_kernel"}
+
+
+def replay_kernel_counts(graph) -> tuple:
+    """Kernels of the two sources that one traced replay of a FrameGraph
+    runs on the card, by source, and the number of all its kernels.  The
+    replay runs on whatever the graph's buffers hold; every call of the
+    graph's entry points overwrites them."""
+    from torch.profiler import ProfilerActivity, profile
+
+    graph.index.zero_()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        graph.graph.replay()
+        torch.cuda.synchronize()
+    graph.index.zero_()
+    kernels = [e for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    counts = {source: sum(function in e.name for e in kernels)
+              for source, function in KERNEL_FUNCTIONS.items()}
+    return counts, len(kernels)
+
+
 def phase_pipeline(tag, cfg, n_frames, jax_positions, kernels) -> dict:
     """Drive ``n_frames`` flagship frames under ``cfg`` and hold them to
-    ``jax_positions``; returns the launch counts of this run and the mean
-    stream ms per stage."""
+    ``jax_positions``; returns the launch counts of this run (the wrappers'
+    own, and those made through graph replays) and the mean stream ms per
+    stage."""
     frames = list(synthetic_frames(n_frames, cfg, n_azimuth=1800, speed=1.0,
                                    seed=0))
+    graph = fused.frame_graph(cfg, "cuda") if cfg.fused_step else None
+    replays = graph.replays if graph else 0
     pipe = Pipeline(cfg, device="cuda")
     for k in kernels:
         k.launches = 0
@@ -551,13 +596,21 @@ def phase_pipeline(tag, cfg, n_frames, jax_positions, kernels) -> dict:
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = {k.source.name: k.launches for k in kernels}
+    nothing = dict.fromkeys(launches, 0)
+    replays = graph.replays - replays if graph else 0
+    graph_launches = ({name: n * replays
+                       for name, n in graph.kernel_launches.items()}
+                      if graph else nothing)
 
     n_mapped = sum(r.mapped for r in results)
     want = expected_launches(cfg, n_frames, n_mapped)
-    if launches != want:
-        raise AssertionError(f"launches {launches} != {want}, derived from "
-                             f"the config for {n_frames} frames, {n_mapped} "
-                             "mapped")
+    eager_want, graph_want = (nothing, want) if graph else (want, nothing)
+    if launches != eager_want or graph_launches != graph_want:
+        raise AssertionError(
+            f"launches counted by the wrappers {launches} != {eager_want}, or "
+            f"through {replays} graph replays {graph_launches} != "
+            f"{graph_want}: derived from the config for {n_frames} frames, "
+            f"{n_mapped} mapped")
     for r in results:
         if not (np.isfinite(r.odom_q).all() and np.isfinite(r.odom_t).all()):
             raise AssertionError(f"frame {r.frame}: non-finite odometry pose")
@@ -578,15 +631,16 @@ def phase_pipeline(tag, cfg, n_frames, jax_positions, kernels) -> dict:
           f"plane {o.plane_vote_mode} corner {o.corner_vote_mode} mapping "
           f"{cfg.mapping.vote_mode}, surf search {o.surf_knn}, distortion "
           f"{o.distortion}, occlusion filter {cfg.scan.occlusion_filter} | "
-          f"launches {launches} | peak memory "
+          f"launches counted by the wrappers {launches}, through {replays} "
+          f"graph replays {graph_launches} | peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB | max "
           f"|mapped - jax| {dev_m.max():.4f} m | "
           + " ".join(f"{n} {ms:.2f}ms" for n, ms in sorted(stages.items()))
           + f" (stream, mean of frames 2-{n_frames}) | {fps:.2f} frames/s "
           f"(host wall, frames 2-{n_frames}; first frame "
           f"{(t1 - t0) * 1e3:.0f} ms)")
-    return dict(launches=launches, stages=stages, positions=positions,
-                fps=fps, pipe=pipe)
+    return dict(launches=launches, graph_launches=graph_launches,
+                stages=stages, positions=positions, fps=fps, pipe=pipe)
 
 
 FULL_VOTE_SHAPES = ((10, 163), (10, 829))
@@ -675,11 +729,11 @@ def phase_latent_calls(dev) -> dict:
     return out
 
 
-def _check_same_card(tag, a, b) -> float:
+def _check_gap(tag, a, b, limit=SAME_CARD_TOL_M) -> float:
     gap = float(np.linalg.norm(a - b, axis=1).max())
-    if gap > SAME_CARD_TOL_M:
+    if gap > limit:
         raise AssertionError(f"{tag}: positions differ by {gap:.6f} m "
-                             f"(> {SAME_CARD_TOL_M} m)")
+                             f"(> {limit} m)")
     return gap
 
 
@@ -693,25 +747,30 @@ def phase_fused(kernels, staged) -> dict:
           f"{graph.warmup_seconds:.2f} s ({fused.WARMUP_PASSES} eager pass), "
           f"capture and instantiate {graph.capture_seconds:.2f} s, peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    per_replay = {k.source.name: n for k, n in graph.kernel_launches.items()}
-    if per_replay != expected_launches(cfg, 1, 1):
-        raise AssertionError(f"the capture recorded {per_replay} launches")
+    want = expected_launches(cfg, 1, 1)
+    traced, n_kernels = replay_kernel_counts(graph)
+    if graph.kernel_launches != want or traced != want:
+        raise AssertionError(
+            f"one replay should launch {want}: the wrappers counted "
+            f"{graph.kernel_launches} at capture, a traced replay ran {traced}")
     p9 = phase_pipeline("9 fused", cfg, N_FRAMES, JAX_MAPPED_POSITIONS,
                         kernels)
-    if graph.replays != N_FRAMES:
-        raise AssertionError(f"{graph.replays} replays for {N_FRAMES} frames")
-    gap = _check_same_card("phase 9 vs phase 5", p9["positions"],
-                           staged["positions"])
-    print(f"[9 fused] one graph replay per frame, {per_replay} launches per "
-          f"replay | max |fused - staged (phase 5)| {gap * 1e3:.4f} mm | "
+    gap = _check_gap("phase 9 vs phase 5", p9["positions"],
+                     staged["positions"])
+    print(f"[9 fused] one graph replay per frame; a traced replay ran "
+          f"{n_kernels} kernels, of them "
+          + ", ".join(f"{traced[src]} {fn}"
+                      for src, fn in KERNEL_FUNCTIONS.items())
+          + f" (counted at capture: {graph.kernel_launches}) | max |fused - "
+          f"staged (phase 5)| {gap * 1e3:.4f} mm (both with atomic sums) | "
           f"{p9['fps']:.2f} frames/s fused against {staged['fps']:.2f} staged")
     return p9
 
 
 def phase_merge_calls(pipe) -> None:
     """Device ms per call of the surf map-store registration on phase 9's
-    final map: the sorted merge, the full re-sort, and what the fused frame
-    runs in place of the staged path's host branch (both, then a select)."""
+    final map: the sorted merge, the full re-sort, and the registration the
+    mapping step runs (both, then a select on the device)."""
     cfg = pipe.cfg.mapping
     state, surf = pipe.map_state, pipe.odo_state.surf_last
     sx, _, sm, _ = voxel_downsample(surf.xyz, surf.rel, surf.mask,
@@ -720,13 +779,25 @@ def phase_merge_calls(pipe) -> None:
     q, t = pipe.mapped_trajectory()
     new = mapping.register_cloud(torch.as_tensor(q[-1]).cuda(),
                                  torch.as_tensor(t[-1]).cuda(), sx)
+    ijk = mapping._cube_of(new, state.cen, cfg)
+    inside = mapping._inside(ijk, cfg)
+    cell = torch.where(inside, mapping._cell_linear(ijk, cfg),
+                       torch.zeros_like(ijk[:, 0])).to(torch.int32)
+    store, leaf = state.surf, cfg.plane_resolution
     select = torch.zeros((), dtype=torch.bool, device="cuda")
-    ms = {name: _graph_ms(functools.partial(
-              mapping._merge_into_store, state.surf, new, sm, state.cen, cfg,
-              cfg.plane_resolution, cfg.map_surf_capacity, flag), 20)
-          for name, flag in (("sorted", False), ("full", True),
-                             ("both + select", select))}
-    print(f"[9 fused] surf store registration ({int(state.surf.mask.sum())} "
+    calls = {
+        "sorted": functools.partial(
+            mapping.merge_sorted, store.xyz, store.cell, store.mask, new,
+            cell, sm & inside, leaf),
+        "full": functools.partial(
+            mapping._merge_full, store, new, cell, sm & inside, leaf,
+            cfg.map_surf_capacity),
+        "both + select": functools.partial(
+            mapping._merge_into_store, store, new, sm, state.cen, cfg, leaf,
+            cfg.map_surf_capacity, select),
+    }
+    ms = {name: _graph_ms(fn, 20) for name, fn in calls.items()}
+    print(f"[9 fused] surf store registration ({int(store.mask.sum())} "
           f"live of {cfg.map_surf_capacity}, {int(sm.sum())} new points), "
           "device ms per call (replayed as a graph): " + " | ".join(
               f"{n} {v:.3f}" for n, v in ms.items()))
@@ -756,46 +827,23 @@ def write_kitti_sequence(root, frames, sequence="99") -> None:
                fmt="%.6e")
 
 
-def _chunk_graph_times(graph, frames) -> None:
-    """One chunk as ``chunk`` replays of a one-frame graph (what the entry
-    points run) against one replay of a graph of the whole chunk: stream ms
-    per chunk from the initial state, and what each capture took."""
-    xyz = torch.as_tensor(np.stack([f[1] for f in frames])).cuda()
-    mask = torch.as_tensor(np.stack([f[2] for f in frames])).cuda()
-    cfg, dev = graph.cfg, graph.device
-    whole = fused.FrameGraph(cfg, dev, graph.chunk, unroll=graph.chunk)
-    states = (OdometryState.init(cfg.scan.max_less_sharp,
-                                 cfg.scan.max_less_flat, dev),
-              MappingState.init(cfg.mapping, dev))
-    ms, rows = {}, {}
-    for name, g in (("per frame", graph), ("whole chunk", whole)):
-        ms[name] = _median_ms(
-            lambda: rows.__setitem__(name, g.run(*states, xyz, mask)[2]), 3)
-    gap = float(np.linalg.norm((rows["per frame"].map_t
-                                - rows["whole chunk"].map_t).cpu().numpy(),
-                               axis=1).max())
-    if gap > SAME_CARD_TOL_M:
-        raise AssertionError(f"chunk graphs differ by {gap:.6f} m")
-    print(f"[10 kitti] one chunk of {graph.chunk} frames, stream ms: "
-          f"{graph.chunk} replays of a one-frame graph {ms['per frame']:.2f} "
-          f"(capture {graph.capture_seconds:.2f} s) | one replay of a "
-          f"{graph.chunk}-frame graph {ms['whole chunk']:.2f} (capture "
-          f"{whole.capture_seconds:.2f} s) | max gap {gap * 1e3:.4f} mm")
-
-
 def phase_kitti(kernels, p5, p9) -> dict:
     """Phase 10: KITTI folder in, trajectory files out, chunked and fused
-    per frame; returns the launches of both runs."""
+    per frame; returns the launches both runs made through graph replays."""
     cfg = PROFILES["hdl64"]
     frames = list(synthetic_frames(N_FRAMES, cfg, n_azimuth=1800, speed=1.0,
                                    seed=0))
     torch.cuda.reset_peak_memory_stats()
-    graph = fused.frame_graph(cfg, "cuda", chunk=KITTI_CHUNK)
-    print(f"[10 kitti] graph for chunks of {KITTI_CHUNK} ({graph.unroll} "
-          f"frame per graph): warm-up {graph.warmup_seconds:.2f} s, capture "
-          f"and instantiate {graph.capture_seconds:.2f} s")
-    _chunk_graph_times(graph, frames[:KITTI_CHUNK])
+    # the graphs run_kitti will replay: the chunked runner's, and phase 9's
+    graphs = {"chunked": fused.frame_graph(cfg, "cuda", chunk=KITTI_CHUNK),
+              "fused": fused.frame_graph(
+                  dataclasses.replace(cfg, fused_step=True), "cuda")}
+    print(f"[10 kitti] graph for chunks of {KITTI_CHUNK} (one frame, "
+          f"{KITTI_CHUNK} replays per chunk): warm-up "
+          f"{graphs['chunked'].warmup_seconds:.2f} s, capture and instantiate "
+          f"{graphs['chunked'].capture_seconds:.2f} s")
     launches, est, fps = {}, {}, {}
+    want = expected_launches(cfg, N_FRAMES, N_FRAMES)
     with tempfile.TemporaryDirectory() as root:
         write_kitti_sequence(root, frames)
         gt_cam = read_gt_poses(os.path.join(root, "results", "99.txt"))
@@ -803,17 +851,21 @@ def phase_kitti(kernels, p5, p9) -> dict:
                              ("fused", dict(fused=True))):
             for k in kernels:
                 k.launches = 0
+            graph, replays = graphs[name], graphs[name].replays
             result = os.path.join(root, f"traj_{name}.txt")
             torch.cuda.synchronize()
             t0 = time.perf_counter()
             run_kitti(root, "99", result, profile="hdl64", **kwargs)
             torch.cuda.synchronize()
             fps[name] = N_FRAMES / (time.perf_counter() - t0)
-            launches[name] = {k.source.name: k.launches for k in kernels}
-            want = expected_launches(cfg, N_FRAMES, N_FRAMES)
-            if launches[name] != want:
-                raise AssertionError(f"{name}: launches {launches[name]} != "
-                                     f"{want}")
+            replays = graph.replays - replays
+            launches[name] = {src: n * replays
+                              for src, n in graph.kernel_launches.items()}
+            if launches[name] != want or any(k.launches for k in kernels):
+                raise AssertionError(
+                    f"{name}: {replays} replays made {launches[name]} "
+                    f"launches, not {want}; or the wrappers counted some: "
+                    f"{[k.launches for k in kernels]}")
             est[name] = read_gt_poses(result)
     R, t = gt_to_lidar_frame(gt_cam)
     gt = np.concatenate([R, t[:, :, None]], axis=2)
@@ -826,10 +878,10 @@ def phase_kitti(kernels, p5, p9) -> dict:
         ate[name] = ate_rmse(poses, gt)
         if ate[name] >= KITTI_ATE_TOL_M:
             raise AssertionError(f"{name}: ATE {ate[name]:.4f} m")
-    gap = _check_same_card("chunked vs fused file", est["chunked"][:, :, 3],
-                           est["fused"][:, :, 3])
-    gap9 = _check_same_card("fused file vs phase 9", est["fused"][:, :, 3],
-                            p9["positions"])
+    gap = _check_gap("chunked vs fused file", est["chunked"][:, :, 3],
+                     est["fused"][:, :, 3])
+    gap9 = _check_gap("fused file vs phase 9", est["fused"][:, :, 3],
+                      p9["positions"])
     print(f"[10 kitti] {N_FRAMES}-frame KITTI folder -> pose files | chunked "
           f"(K={KITTI_CHUNK}) {fps['chunked']:.2f} frames/s, fused per frame "
           f"{fps['fused']:.2f} frames/s (host wall over all {N_FRAMES} "
@@ -837,17 +889,33 @@ def phase_kitti(kernels, p5, p9) -> dict:
           f"before) against {p9['fps']:.2f} (phase 9) and {p5['fps']:.2f} "
           f"(phase 5, staged) | ATE chunked {ate['chunked']:.4f} m fused "
           f"{ate['fused']:.4f} m | max |chunked - fused| {gap * 1e3:.4f} mm, "
-          f"|fused - fused (phase 9)| {gap9 * 1e3:.4f} mm "
-          f"| launches {launches} | peak memory "
+          f"|fused - fused (phase 9)| {gap9 * 1e3:.4f} mm (atomic sums) "
+          f"| launches through graph replays {launches}, none counted by the "
+          f"wrappers | peak memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     return {name: sum(run[name] for run in launches.values())
             for name in launches["chunked"]}
 
 
+@contextlib.contextmanager
+def deterministic_sums():
+    """``index_add_`` without atomics (other ops that have no deterministic
+    version only warn).  A graph holds the kernels chosen at its capture, so
+    none crosses the border."""
+    fused.clear_graphs()
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        fused.clear_graphs()
+
+
 def phase_checkpoint(kernels, p5) -> dict:
-    """Phase 11: save after frame 6, resume in a fresh Pipeline, compare
-    frame 7; export the map as PLY.  The uninterrupted run repeats phase
-    5's first 8 frames: the gap between the two staged runs is printed."""
+    """Phase 11, under deterministic sums: save after frame 6, resume in a
+    fresh Pipeline, compare frame 7; export the map as PLY.  The
+    uninterrupted run repeats phase 5's first 8 frames: the gap to that run,
+    which added with atomics, is printed."""
     cfg = PROFILES["hdl64"]
     frames = list(synthetic_frames(8, cfg, n_azimuth=1800, speed=1.0, seed=0))
     for k in kernels:
@@ -871,13 +939,13 @@ def phase_checkpoint(kernels, p5) -> dict:
         gaps = {name: float(np.abs(getattr(ra, name)
                                    - getattr(rb, name)).max())
                 for name in ("odom_q", "odom_t", "map_q", "map_t")}
-        if max(gaps.values()) > SAME_CARD_TOL_M:
+        if max(gaps.values()) > RESUME_TOL:
             raise AssertionError(f"frame 7 after the resume differs: {gaps}")
         if not np.array_equal(a.mapped_positions()[:7],
                               b.mapped_positions()[:7]):
             raise AssertionError("the mapped history did not survive")
-        rerun = _check_same_card("phase 11 vs phase 5", a.mapped_positions(),
-                                 p5["positions"][:8])
+        rerun = _check_gap("phase 11 vs phase 5", a.mapped_positions(),
+                           p5["positions"][:8])
         counts = b.export_map(os.path.join(root, "map"))
         for name, store in (("corner", b.map_state.corner),
                             ("surf", b.map_state.surf)):
@@ -891,14 +959,46 @@ def phase_checkpoint(kernels, p5) -> dict:
     want = expected_launches(cfg, 9, 9)
     if launches != want:
         raise AssertionError(f"launches {launches} != {want}")
-    print(f"[11 checkpoint] saved after frame 6 ({size / 2**20:.1f} MiB, "
-          f"{save_s:.2f} s), loaded into a fresh Pipeline ({load_s:.2f} s) | "
-          f"frame 7 resumed vs uninterrupted, max abs: "
-          + " ".join(f"{n} {g:.2e}" for n, g in gaps.items())
-          + f" (limit {SAME_CARD_TOL_M}) | max |staged - staged (phase 5)| "
-          f"over 8 frames {rerun * 1e3:.4f} mm | PLY points {counts} | "
+    print(f"[11 checkpoint] deterministic sums | saved after frame 6 "
+          f"({size / 2**20:.1f} MiB, {save_s:.2f} s), loaded into a fresh "
+          f"Pipeline ({load_s:.2f} s) | frame 7 resumed vs uninterrupted, max "
+          "abs: " + " ".join(f"{n} {g:.2e}" for n, g in gaps.items())
+          + f" (limit {RESUME_TOL}) | max |staged - staged (phase 5, atomic "
+          f"sums)| over 8 frames {rerun * 1e3:.4f} mm | PLY points {counts} | "
           f"launches {launches}")
     return launches
+
+
+def phase_repeatable(kernels, p5, p9) -> tuple:
+    """Phase 12, under deterministic sums: the 12 frames staged, fused per
+    frame and chunked; the three must agree within 1 mm.  Returns the staged
+    and the fused run."""
+    cfg = PROFILES["hdl64"]
+    staged = phase_pipeline("12 deterministic, staged", cfg, N_FRAMES,
+                            JAX_MAPPED_POSITIONS, kernels)
+    per_frame = phase_pipeline(
+        "12 deterministic, fused", dataclasses.replace(cfg, fused_step=True),
+        N_FRAMES, JAX_MAPPED_POSITIONS, kernels)
+    frames = synthetic_frames(N_FRAMES, cfg, n_azimuth=1800, speed=1.0, seed=0)
+    _, _, outs = fused.run_chunked(((xyz, mask) for _, xyz, mask in frames),
+                                   cfg, chunk_size=KITTI_CHUNK)
+    gaps = {
+        "fused - staged": _check_gap(
+            "deterministic fused vs staged", per_frame["positions"],
+            staged["positions"], REPEATABLE_TOL_M),
+        "chunked - fused": _check_gap(
+            "deterministic chunked vs fused", outs.map_t,
+            per_frame["positions"], REPEATABLE_TOL_M),
+    }
+    print("[12 deterministic] index_add_ without atomics | max gap, mm (limit "
+          f"{REPEATABLE_TOL_M * 1e3:g}): " + ", ".join(
+              f"|{n}| {g * 1e3:.6f}" for n, g in gaps.items())
+          + f" | frames/s staged {staged['fps']:.2f} (atomic sums, phase 5: "
+          f"{p5['fps']:.2f}), fused {per_frame['fps']:.2f} (phase 9: "
+          f"{p9['fps']:.2f}); fused_step "
+          f"{per_frame['stages']['fused_step']:.2f} ms (phase 9: "
+          f"{p9['stages']['fused_step']:.2f})")
+    return staged, per_frame
 
 
 def main() -> int:
@@ -927,9 +1027,14 @@ def main() -> int:
     p9 = phase_fused(kernels, p5)
     phase_merge_calls(p9["pipe"])
     p10 = phase_kitti(kernels, p5, p9)
-    p11 = phase_checkpoint(kernels, p5)
-    launches = {name: sum(p["launches"][name] for p in (p5, p6, p7, p8, p9))
-                + p10[name] + p11[name] for name in p5["launches"]}
+    with deterministic_sums():
+        p11 = phase_checkpoint(kernels, p5)
+        p12 = phase_repeatable(kernels, p5, p9)
+    runs = (p5, p6, p7, p8, p9) + p12
+    launches = {name: sum(p["launches"][name] for p in runs) + p11[name]
+                for name in p5["launches"]}
+    graph_launches = {name: sum(p["graph_launches"][name] for p in runs)
+                      + p10[name] for name in p5["launches"]}
 
     surf = knn[("surf", "below")]
     odo = vote[VOTE_SHAPES[0]]
@@ -938,7 +1043,8 @@ def main() -> int:
         {"name": "knn5", "route": "cuda",
          "source": "light_loam_tpu_torch/csrc/knn.cu",
          "replaces": "light_loam_tpu/ops/pallas_knn.py:69",
-         "launches": launches["knn.cu"], "max_abs_err": knn_err,
+         "launches": launches["knn.cu"],
+         "graph_launches": graph_launches["knn.cu"], "max_abs_err": knn_err,
          "ms": surf["ms"], "plain_ms": surf["plain_ms"],
          "device_ms": surf["device_ms"], "bound_ms": surf["bound_ms"],
          "bound_by": surf["bound_by"], "library_ms": None,
@@ -951,6 +1057,7 @@ def main() -> int:
          "source": "light_loam_tpu_torch/csrc/vote.cu",
          "replaces": "light_loam_tpu/ops/pallas_vote.py:33",
          "launches": launches["vote.cu"],
+         "graph_launches": graph_launches["vote.cu"],
          "max_abs_err": max(v["err"] for v in vote.values()),
          "ms": odo["ms"], "plain_ms": odo["plain_ms"],
          "device_ms": odo["device_ms"], "bound_ms": odo["bound_ms"],

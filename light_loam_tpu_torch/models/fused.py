@@ -13,10 +13,10 @@ Semantics match the staged path, including the divergence containment that
 pipeline.py performs on the host: a non-finite odometry translation keeps
 the previous world pose, resets the warm-start increment to identity, and
 feeds the contained pose to mapping.  Here that policy is a ``torch.where``
-on the device.  The two host decisions of the staged stages are replaced by
-device-side equivalents that give the same result: the mapping step
-computes both store merges and selects (``host_branch=False``), and the
-tiled surf search sweeps every tile (``read_live_count=False``).
+on the device.  The one host decision of the staged stages is replaced by
+a device-side equivalent that gives the same result: the tiled surf search
+sweeps every tile (``read_live_count=False``).  The mapping step reads
+nothing to the host on either path.
 
 A graph replays on the buffers it was captured on (``FrameGraph``): the
 caller's states and frames are copied into its static buffers, the
@@ -101,7 +101,6 @@ def _fused_frame_body(
         q_w,
         t_w,
         cfg.mapping,
-        host_branch=False,
     )
     return odo_state, map_state, odo, mout, ~finite
 
@@ -148,17 +147,19 @@ def _clone(tree):
 class FrameGraph:
     """The fused frame of one (config, device) captured as a CUDA graph,
     with the static buffers it replays on: ``chunk`` frames of input, the
-    odometry and mapping state, and ``chunk`` rows of output.  A chunk is
-    ``chunk // unroll`` replays of a graph of ``unroll`` frames; the entry
-    points capture one frame per graph (capturing a whole chunk as one
-    graph multiplies the capture time and gains nothing measurable,
-    PERF.md)."""
+    odometry and mapping state, and ``chunk`` rows of output.  The graph
+    holds one frame and a chunk is ``chunk`` replays of it (a whole chunk
+    captured as one graph took as long to replay and ``chunk`` times as
+    long to capture, PERF.md).
+
+    ``kernel_launches`` is what the hand-written kernels' wrappers counted
+    while the step was captured, so what one replay launches; ``replays``
+    counts the replays.  A replay goes past the wrappers and leaves their
+    own counts alone."""
 
     def __init__(self, cfg: PipelineConfig, device: torch.device,
-                 chunk: int = 1, unroll: int = 1):
-        if chunk % unroll:
-            raise ValueError(f"unroll {unroll} must divide chunk {chunk}")
-        self.cfg, self.device, self.chunk, self.unroll = cfg, device, chunk, unroll
+                 chunk: int = 1):
+        self.cfg, self.device, self.chunk = cfg, device, chunk
         n = cfg.scan.max_points
         self.xyz = torch.zeros((chunk, n, 3), device=device)
         self.mask = torch.zeros((chunk, n), dtype=torch.bool, device=device)
@@ -185,7 +186,7 @@ class FrameGraph:
         )
         self.last = None           # (odo, mout, diverged) of the last step
         self.replays = 0
-        self.kernel_launches: Dict = {}
+        self.kernel_launches: Dict[str, int] = {}
         with torch.cuda.device(device):
             self._capture()
 
@@ -206,8 +207,8 @@ class FrameGraph:
         return odo, mout, diverged
 
     def _capture(self) -> None:
-        """Warm up on a side stream, then capture ``unroll`` steps.  The
-        warm-up runs on the static state (empty frames from the initial
+        """Warm up on a side stream, then capture one step.  The warm-up
+        runs on the static state (empty frames from the initial
         state), which every call overwrites with the caller's, so it
         advances no run."""
         main = torch.cuda.current_stream(self.device)
@@ -223,20 +224,15 @@ class FrameGraph:
         torch.cuda.synchronize(self.device)
         self.warmup_seconds = time.perf_counter() - t0
 
-        # the capture pass records the hand-written kernels' launches and
-        # runs nothing: note how many a replay makes, and take the
-        # recording itself back off their counts
         kernels = (KNN5, VOTE)
         before = [k.launches for k in kernels]
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(self.graph):
-            for _ in range(self.unroll):
-                self.last = self._step()
+            self.last = self._step()
         self.capture_seconds = time.perf_counter() - t0
         for k, b in zip(kernels, before):
-            self.kernel_launches[k] = k.launches - b
-            k.launches = b
+            self.kernel_launches[k.source.name] = k.launches - b
 
     def _load_frames(self, xyz: torch.Tensor, mask: torch.Tensor) -> None:
         if xyz.is_cuda:
@@ -267,11 +263,9 @@ class FrameGraph:
             dst.copy_(src, non_blocking=True)
         self._load_frames(xyz, mask)
         self.index.zero_()
-        for _ in range(self.chunk // self.unroll):
+        for _ in range(self.chunk):
             self.graph.replay()
             self.replays += 1
-            for kernel, n in self.kernel_launches.items():
-                kernel.launches += n
         return _clone(self.odo_state), _clone(self.map_state), _clone(self.rows)
 
 

@@ -20,11 +20,10 @@ Per frame (``mapping_step``, ref:1502-2354):
   6. register the stacks into the map + voxel dedup (ref:2104-2168).
 
 Whether the grid recentered decides between the sorted merge and the full
-re-sort.  The staged path decides on the host: one device-to-host read per
-mapped frame.  With ``host_branch=False`` (the fused frame, which a CUDA
-graph replays and which therefore cannot branch on the host) the step
-computes both stores and selects on the device; the selected store is the
-one the host branch would have returned.
+re-sort.  The step computes both stores and selects on the device, so it
+makes no host read and a CUDA graph can hold it (models/fused.py); on the
+staged path that costs about a millisecond of device time per frame and
+saves the read (PERF.md).
 """
 
 from __future__ import annotations
@@ -313,22 +312,18 @@ def _merge_into_store(store: MapStore, new_xyz, new_mask, cen, cfg,
     outside the grid are dropped (ref:2119-2121).  Between recenters
     (rows are only evicted there) the sorted merge applies; recenter
     frames, and map_store_mode="resort", re-sort the whole store.
-    ``recentered`` is a Python bool, or a bool tensor: then both merges run
-    and the store is selected on the device."""
+    ``recentered`` is a bool tensor: both merges run and the store is
+    selected on the device."""
     ijk = _cube_of(new_xyz, cen, cfg)
     inside = _inside(ijk, cfg)
     new_cell = torch.where(inside, _cell_linear(ijk, cfg),
                            torch.zeros_like(ijk[:, 0])).to(torch.int32)
     new_mask = new_mask & inside
-    if cfg.map_store_mode == "resort":
-        recentered = True
-    if recentered is True:
-        return _merge_full(store, new_xyz, new_cell, new_mask, leaf, capacity)
-    merged = MapStore(*merge_sorted(store.xyz, store.cell, store.mask,
-                                    new_xyz, new_cell, new_mask, leaf))
-    if recentered is False:
-        return merged
     full = _merge_full(store, new_xyz, new_cell, new_mask, leaf, capacity)
+    if cfg.map_store_mode == "resort":
+        return full
+    merged = merge_sorted(store.xyz, store.cell, store.mask,
+                          new_xyz, new_cell, new_mask, leaf)
     return MapStore(*(torch.where(recentered, f, m)
                       for f, m in zip(full, merged)))
 
@@ -384,7 +379,6 @@ def mapping_step(
     q_odom: torch.Tensor,
     t_odom: torch.Tensor,
     cfg: MappingConfig,
-    host_branch: bool = True,
 ) -> Tuple[MappingState, MappingOutput]:
     check_mapping_config(cfg)
     # 1. initial guess from odometry (ref:113-117)
@@ -462,10 +456,8 @@ def mapping_step(
     q_wm = quat.quat_normalize(quat.quat_multiply(q_w, quat.quat_inverse(q_odom)))
     t_wm = t_w - quat.quat_rotate(q_wm, t_odom)
 
-    # 6. register the stacks into the map (host branch: one sync)
+    # 6. register the stacks into the map
     recentered = torch.any(cen != state.cen)
-    if host_branch:
-        recentered = bool(recentered)
     reg_c = quat.quat_rotate(q_w[None, :], stack_c_xyz) + t_w[None, :]
     reg_s = quat.quat_rotate(q_w[None, :], stack_s_xyz) + t_w[None, :]
     corner_store = _merge_into_store(

@@ -93,11 +93,14 @@ def test_fused_matches_staged_pipeline():
     assert "fused_step" in report and "odometry" not in report
 
 
-def test_fused_recenter_frame_selects_the_resorted_store():
-    """A pose that leaves the grid's margin recenters it: the staged step
-    re-sorts the store on the host's say, the fused body computes both
-    merges and must select the same one."""
-    from light_loam_tpu_torch.models.mapping import mapping_step
+def test_fused_recenter_frame_selects_the_resorted_store(monkeypatch):
+    """The mapping step computes both store merges and selects on the
+    device.  A pose that leaves the grid's margin recenters it, and the
+    selected store must be the re-sorted one (what map_store_mode="resort"
+    returns); a pose inside the margin must select the sorted merge.  With
+    the full re-sort made to return an empty store, each frame shows which
+    of the two it took."""
+    from light_loam_tpu_torch.models import mapping as tmapping
 
     frames = _frames(BASE, World.urban(seed=21), 2)
     pipe = Pipeline(BASE, device="cpu")
@@ -105,14 +108,36 @@ def test_fused_recenter_frame_selects_the_resorted_store():
         pipe.process_frame(xyz, mask)
     odo = pipe.odo_state
     far = torch.tensor([400.0, 0.0, 0.0])  # 8 cubes of 50 m along x
-    args = (pipe.map_state, odo.corner_last, odo.surf_last, odo.q_w, far,
-            BASE.mapping)
-    st_host, out_host = mapping_step(*args)
-    st_dev, out_dev = mapping_step(*args, host_branch=False)
-    assert not torch.equal(st_host.cen, pipe.map_state.cen)
-    for a, b in zip(tfused._leaves(st_host), tfused._leaves(st_dev)):
+
+    def step(t, cfg=BASE.mapping):
+        return tmapping.mapping_step(pipe.map_state, odo.corner_last,
+                                     odo.surf_last, odo.q_w, t, cfg)
+
+    st_far, out_far = step(far)
+    st_near, out_near = step(odo.t_w)
+    st_resort, _ = step(far, dataclasses.replace(BASE.mapping,
+                                                 map_store_mode="resort"))
+    assert not torch.equal(st_far.cen, pipe.map_state.cen)
+    assert torch.equal(st_near.cen, pipe.map_state.cen)
+    for a, b in zip(tfused._leaves(st_far), tfused._leaves(st_resort)):
         assert torch.equal(a, b)
-    assert int(out_dev.map_surf_points) == int(out_host.map_surf_points) > 0
+    assert int(out_far.map_surf_points) > 0
+
+    real_full = tmapping._merge_full
+
+    def empty_full(*args):
+        store = real_full(*args)
+        return store._replace(mask=torch.zeros_like(store.mask))
+
+    monkeypatch.setattr(tmapping, "_merge_full", empty_full)
+    _, out_far_empty = step(far)
+    st_near_sorted, out_near_sorted = step(odo.t_w)
+    assert int(out_far_empty.map_surf_points) == 0
+    assert int(out_far_empty.map_corner_points) == 0
+    assert int(out_near_sorted.map_surf_points) \
+        == int(out_near.map_surf_points) > 0
+    for a, b in zip(tfused._leaves(st_near_sorted), tfused._leaves(st_near)):
+        assert torch.equal(a, b)
 
 
 def test_chunked_matches_per_frame_fused():

@@ -5,20 +5,30 @@ per frame, hdl64-small, 600 azimuth steps), scored with the port's own
 ``io/evaluation.py``.
 
 The gates are the JAX test's: ATE under 1 % of the 157 m path and a
-loop-closure error under 0.8 m.  On the CPU the port measured an ATE of
-0.095 m (0.06 % of the path) and a closure of 0.020 m, in about 3 minutes:
-hence the ``slow`` mark, as on the JAX test.
+loop-closure error under 0.8 m.  The same scans also go through the JAX
+package's pipeline, and the two mapped trajectories are held together
+frame by frame within ``AGREE_M`` (see there).  About 7 minutes on the
+CPU: hence the ``slow`` mark, as on the JAX test.
 """
 
 import numpy as np
 import pytest
 import torch
 
+from light_loam_tpu.models import pipeline as jpl
 from light_loam_tpu.utils.synthetic import World, pad_cloud, simulate_scan
 from light_loam_tpu_torch.io.evaluation import ate_rmse, poses_from_quat_trans
 from light_loam_tpu_torch.models.pipeline import PROFILES, Pipeline
 
 torch.set_num_threads(2)
+
+# Between the two packages: over 6 frames of a straight run they stay within
+# 2 cm (tests/test_torch_pipeline.py); over the loop's 48 frames of 7.5
+# degree turns the float32 plane-fit flips walk them up to 0.0555 m apart
+# (measured on the CPU), while each is 0.08-0.10 m (ATE) from the truth.
+# The gate is that distance to the truth: the two runs must be no further
+# from each other than either is from where the sensor was.
+AGREE_M = 0.10
 
 
 @pytest.mark.slow
@@ -31,14 +41,18 @@ def test_loop_trajectory_gate():
     n_frames = 48
     world = World.loop(seed=5, radius=radius)
     pipe = Pipeline(cfg, device="cpu")
+    jpipe = jpl.Pipeline(jpl.PROFILES["hdl64-small"])
     truth = []
     for i in range(n_frames):
         th = 2 * np.pi * i / n_frames
         pos = np.array([radius * np.sin(th), radius * (1 - np.cos(th)), 0.0])
         pts = simulate_scan(world, pos, sensor_yaw=th, n_azimuth=600,
                             noise=0.01, seed=500 + i)
-        pipe.process_frame(*pad_cloud(pts, cfg.scan.max_points))
+        xyz, mask = pad_cloud(pts, cfg.scan.max_points)
+        pipe.process_frame(xyz, mask)
+        jpipe.process_frame(xyz, mask)
         truth.append(pos)
+    jpipe._retire_mapping(wait=True)
     q, t = pipe.mapped_trajectory()
     assert len(t) == n_frames and pipe.diverged_frames == 0
     gt = np.zeros((n_frames, 3, 4))
@@ -48,3 +62,8 @@ def test_loop_trajectory_gate():
     assert ate < 0.01 * path_len, f"loop ATE {ate:.3f} m on {path_len:.0f} m"
     closure = float(np.linalg.norm(t[-1] - truth[-1]))
     assert closure < 0.8, f"loop-closure error {closure:.3f} m"
+
+    jt = jpipe.mapped_positions()
+    assert jt.shape == t.shape
+    gap = np.linalg.norm(t - jt, axis=1)
+    assert gap.max() < AGREE_M, f"port and JAX package {gap.max():.4f} m apart"
