@@ -11,10 +11,13 @@ exception and a non-zero exit):
   3. knn5 vs its plain PyTorch version at the mapping stage's shapes; at
      the live counts the stage hands over, timed per call and per launch
      on the device, beside the least time the card could take (its bound);
+     then B = 4 and 8 lanes under ``torch.vmap`` (one launch), each lane
+     bit for bit its own single launch, timed beside B single launches;
   4. compat_votes vs its plain PyTorch version at the odometry plane,
      mapping and odometry corner vote shapes (R, K = 10, 163; 10, 829;
      5, 158), timed per call and per launch on the device, beside its
-     bound;
+     bound; then 4 and 8 lanes of R = 10, K = 163 under ``torch.vmap`` (one
+     launch of R = 40 and 80), equal to 4 and 8 single launches;
   5. the flagship pipeline (HDL64_KITTI, full widths) over 12 synthetic
      frames on the card: kernel launch counts, finite poses, every mapped
      position within 5 cm of the JAX package's, per-stage device ms and
@@ -54,7 +57,21 @@ exception and a non-zero exit):
      (``torch.use_deterministic_algorithms``: ``index_add_`` without
      atomics): the 12 frames staged, fused per frame and chunked, the three
      trajectories within 1 mm of each other, with the frames/s the ordered
-     sums cost.
+     sums cost;
+ 13. the batched lanes (models/batch.py): B flagship sequences per step,
+     lane b the synthetic run of ``World.urban(seed=b)`` (lane 0 is phase
+     5's), one graph replay per batched frame, at B = 1, 4 and 8 over 8
+     frames, then chunks of 4 frames over 4 lanes: lane 0 within 5 cm of
+     the JAX package's positions, every lane within 3 cm of its own fused
+     single-lane run, the chunked run within 3 cm of the per-frame one, and
+     under deterministic sums 2 lanes over 6 frames, run again in reverse
+     order, within 1 mm of the first order (a lane's result must not depend
+     on its place); capture seconds, stream ms per batched frame,
+     aggregate frames/s, kernels per traced replay (4 knn5 and 6 vote
+     kernels whatever B is), the busy share of a traced replay and peak
+     memory; under deterministic sums each batched step is also held to
+     the same lane stepped alone from the same carried state (2 mm for
+     translations, 1e-4 for quaternions).
 
 Launch counts: each kernel's wrapper counts its own launches, and every
 staged phase checks them against the counts derived from its config.  A
@@ -90,7 +107,9 @@ import torch
 from light_loam_tpu_torch.core.frame import PointCloud
 from light_loam_tpu_torch.io.evaluation import ate_rmse
 from light_loam_tpu_torch.io.kitti import gt_to_lidar_frame, read_gt_poses
-from light_loam_tpu_torch.models import fused, mapping
+from light_loam_tpu_torch.models import batch, fused, mapping
+from light_loam_tpu_torch.models.mapping import MappingState
+from light_loam_tpu_torch.models.odometry import OdometryState
 from light_loam_tpu_torch.models.pipeline import (
     PROFILES,
     Pipeline,
@@ -110,6 +129,7 @@ from light_loam_tpu_torch.ops.knn import (
     surf_correspondences_grid,
 )
 from light_loam_tpu_torch.ops.voxel import compact_rows, voxel_downsample
+from light_loam_tpu_torch.utils.timing import StageTimers
 
 # Mapped positions (m) of the JAX package's pipeline on the same run, on the
 # CPU, produced by:
@@ -407,7 +427,13 @@ def knn_bound(Q: int, qc: int, rc: int) -> tuple:
     """knn5 visits qc x rc pairs; it reads the live queries (12 B), the
     live references and their mask (13 B) and the counts, and writes every
     output row (5 x (4 + 4) B)."""
-    return _bound(KNN_FLOP_PER_PAIR * qc * rc, 12 * qc + 13 * rc + 8 + 40 * Q)
+    return knn_lanes_bound(Q, [(qc, rc)])
+
+
+def knn_lanes_bound(Q: int, counts) -> tuple:
+    """knn_bound summed over lanes of (qc, rc) live counts."""
+    return _bound(KNN_FLOP_PER_PAIR * sum(qc * rc for qc, rc in counts),
+                  sum(12 * qc + 13 * rc + 8 + 40 * Q for qc, rc in counts))
 
 
 def vote_bound(R: int, K: int) -> tuple:
@@ -450,6 +476,95 @@ def phase_knn(dev) -> dict:
     return out
 
 
+# lane counts of phase 3's and 4's batched calls (phase 13 runs these B)
+KERNEL_LANES = (4, 8)
+
+
+def knn_lane_cases(dev):
+    """Phase 3's batched knn5 inputs at the mapping stage's capacities: B
+    lanes, each its own draw of the two scans, with live counts near
+    phase 3's "below" case that differ per lane.  Yields (name, B, query
+    (B, Q, 3), ref (B, N, 3), mask (B, N), counts (B, 2))."""
+    pts_a, pts_b = _scan_points(dev)
+    for Q, N, name in ((2048, 32768, "corner"), (8192, 65536, "surf")):
+        for B in KERNEL_LANES:
+            gen = torch.Generator(device="cpu").manual_seed(Q + B)
+            lanes = []
+            for b in range(B):
+                qc, rc = (Q * 5) // 8 - 8 * b, (N * 3) // 8 - 64 * b
+                q = pts_b[torch.randperm(len(pts_b), generator=gen)[:Q].to(dev)]
+                r = pts_a[torch.randperm(len(pts_a), generator=gen)[:N].to(dev)]
+                holes = (torch.rand(N, generator=gen) < 0.1).to(dev)
+                m = ~holes & (torch.arange(N, device=dev) < rc)
+                lanes.append((q, r, m, torch.tensor([qc, rc], dtype=torch.int32,
+                                                    device=dev)))
+            yield (name, B, *(torch.stack(a).contiguous()
+                              for a in zip(*lanes)))
+
+
+def phase_knn_lanes(dev) -> dict:
+    """Phase 3, lanes: ``torch.vmap(knn5)`` over B lanes (one launch), each
+    lane held to the plain version on its own inputs as phase 3 holds a
+    single launch, and equal to its single launch bit for bit; device ms of
+    both, the plain version's ms per call over the B lanes, bound over all
+    lanes' live pairs."""
+    out = {}
+    for name, B, query, ref, mask, counts in knn_lane_cases(dev):
+        d_b, i_b = torch.vmap(knn5)(query, ref, mask, counts)
+        torch.cuda.synchronize()
+        err, swaps = 0.0, 0
+        for b in range(B):
+            lane = (query[b], ref[b], mask[b], counts[b])
+            e, n = _check_knn(query[b], ref[b], d_b[b], i_b[b],
+                              *knn5_plain(*lane))
+            err, swaps = max(err, e), swaps + n
+            d1, i1 = knn5(*lane)
+            if not (torch.equal(d_b[b], d1) and torch.equal(i_b[b], i1)):
+                raise AssertionError(f"knn5 {name} B={B}: lane {b} differs "
+                                     "from its single launch")
+        lanes = functools.partial(torch.vmap(knn5), query, ref, mask, counts)
+
+        def singles(fn=knn5):
+            for b in range(B):
+                fn(query[b], ref[b], mask[b], counts[b])
+
+        Q, N = query.shape[1], ref.shape[1]
+        live = counts.tolist()
+        v = out[(name, B)] = dict(
+            Q=Q, N=N, B=B, counts=live, max_abs_err=err, tie_swaps=swaps,
+            ms=_median_ms(lanes, 20),
+            plain_ms=_median_ms(functools.partial(singles, knn5_plain), 3),
+            device_ms=_device_ms(lanes, 40),
+            singles_device_ms=_device_ms(singles, max(4, 80 // B)))
+        v["bound_ms"], v["bound_by"] = knn_lanes_bound(Q, live)
+    print("[3 knn5 lanes] torch.vmap, one launch, every lane held to the "
+          "plain version and bit for bit its single launch | " + " | ".join(
+              f"{n} B={v['B']} Q={v['Q']} N={v['N']}: max_abs_err "
+              f"{v['max_abs_err']:.3g} tie_swaps={v['tie_swaps']}, kernel "
+              f"{v['device_ms']:.4f} ms per launch on the device "
+              f"({v['ms']:.4f} per call, plain {v['plain_ms']:.4f} per call "
+              f"over the lanes), "
+              f"{v['singles_device_ms']:.4f} ms for {v['B']} single launches, "
+              f"bound {v['bound_ms']:.4f} ms ({v['bound_by']}), "
+              f"{v['bound_ms'] / v['device_ms']:.1%} of the bound"
+              for (n, _), v in out.items()))
+    return out
+
+
+def _vote_inputs(R: int, K: int, seed: int, dev):
+    """(src, tgt, valid) of R chunks of K on the card: a quarter of the
+    targets moved by 2-8 m, a tenth of the slots invalid."""
+    rng = np.random.default_rng(seed)
+    src = rng.uniform(-20, 20, (R, K, 3)).astype(np.float32)
+    bad = rng.random((R, K)) < 0.25
+    tgt = src + 0.3 + np.where(bad[..., None],
+                               rng.uniform(2, 8, (R, K, 3)), 0.0)
+    valid = (rng.random((R, K)) < 0.9).astype(np.float32)
+    return (torch.as_tensor(src * valid[..., None]).to(dev),
+            torch.as_tensor((tgt * valid[..., None]).astype(np.float32)).to(dev),
+            torch.as_tensor(valid).to(dev))
+
+
 # compat_votes shapes: odometry plane vote (1536 // 10 + 10), mapping vote
 # (8192 // 10 + 10), odometry corner vote (768 // 5 + 5)
 VOTE_SHAPES = ((10, 163), (10, 829), (5, 158))
@@ -458,15 +573,7 @@ VOTE_SHAPES = ((10, 163), (10, 829), (5, 158))
 def phase_vote(dev) -> dict:
     out = {}
     for R, K in VOTE_SHAPES:
-        rng = np.random.default_rng(K)
-        src = rng.uniform(-20, 20, (R, K, 3)).astype(np.float32)
-        bad = rng.random((R, K)) < 0.25
-        tgt = src + 0.3 + np.where(bad[..., None],
-                                   rng.uniform(2, 8, (R, K, 3)), 0.0)
-        valid = (rng.random((R, K)) < 0.9).astype(np.float32)
-        src_t = torch.as_tensor(src * valid[..., None]).to(dev)
-        tgt_t = torch.as_tensor((tgt * valid[..., None]).astype(np.float32)).to(dev)
-        val_t = torch.as_tensor(valid).to(dev)
+        src_t, tgt_t, val_t = _vote_inputs(R, K, K, dev)
         v_k = compat_votes(src_t, tgt_t, val_t)
         torch.cuda.synchronize()
         v_p = compat_votes_plain(src_t, tgt_t, val_t)
@@ -493,6 +600,59 @@ def phase_vote(dev) -> dict:
         f"per launch on the device, bound {v['bound_ms']:.4f} ms "
         f"({v['bound_by']}), {v['bound_ms'] / v['device_ms']:.1%} of the bound"
         for (R, K), v in out.items()))
+    return out
+
+
+def phase_vote_lanes(dev) -> dict:
+    """Phase 4, lanes: ``torch.vmap(compat_votes)`` over B lanes of the
+    odometry plane shape, one launch of B·R chunks, each lane held to the
+    plain version on its own inputs as phase 4 holds a single launch, and
+    equal to its single launch; device ms of both and of the plain version
+    over the B·R chunks, beside the bound of B·R chunks."""
+    R, K = VOTE_SHAPES[0]
+    out = {}
+    for B in KERNEL_LANES:
+        src, tgt, valid = (torch.stack(a) for a in zip(
+            *(_vote_inputs(R, K, K + b, dev) for b in range(B))))
+        v_b = torch.vmap(compat_votes)(src, tgt, valid)
+        torch.cuda.synchronize()
+        flat = [a.flatten(0, 1) for a in (src, tgt, valid)]
+        diff = (v_b - compat_votes_plain(*flat).view_as(v_b)).abs()
+        frac = (diff > 0).float().mean(dim=(1, 2))
+        if (diff.max().item() > VOTE_MAX_DIFF
+                or frac.max().item() >= VOTE_MAX_FRAC):
+            raise AssertionError(
+                f"compat_votes B={B}: max diff {diff.max().item()}, "
+                f"differing fraction per lane {frac.tolist()}")
+        for b in range(B):
+            if not torch.equal(v_b[b], compat_votes(src[b], tgt[b], valid[b])):
+                raise AssertionError(f"compat_votes B={B}: lane {b} differs "
+                                     "from its single launch")
+        lanes = functools.partial(torch.vmap(compat_votes), src, tgt, valid)
+        plain = functools.partial(compat_votes_plain, *flat)
+
+        def singles():
+            for b in range(B):
+                compat_votes(src[b], tgt[b], valid[b])
+
+        v = out[B] = dict(B=B, R=B * R, K=K, max_abs_err=diff.max().item(),
+                          ms=_median_ms(lanes, 50),
+                          plain_ms=_median_ms(plain, 20),
+                          device_ms=_device_ms(lanes, 100),
+                          plain_device_ms=_device_ms(plain, 20),
+                          singles_device_ms=_device_ms(singles, 100 // B))
+        v["bound_ms"], v["bound_by"] = vote_bound(B * R, K)
+    print("[4 vote lanes] torch.vmap, one launch, every lane held to the "
+          "plain version and equal to its single launch | " + " | ".join(
+              f"B={B} (R={v['R']} K={v['K']}): max_abs_err "
+              f"{v['max_abs_err']:.3g}, kernel {v['device_ms']:.4f} ms "
+              f"per launch on the device ({v['ms']:.4f} per call), plain "
+              f"{v['plain_device_ms']:.4f} ms on the device ({v['plain_ms']:.4f} "
+              f"per call), "
+              f"{v['singles_device_ms']:.4f} ms for {B} single launches of R="
+              f"{R}, bound {v['bound_ms']:.4f} ms ({v['bound_by']}), "
+              f"{v['bound_ms'] / v['device_ms']:.1%} of the bound"
+              for B, v in out.items()))
     return out
 
 
@@ -550,22 +710,36 @@ KERNEL_FUNCTIONS = {"knn.cu": "knn5_segment_kernel",
 
 def replay_kernel_counts(graph) -> tuple:
     """Kernels of the two sources that one traced replay of a FrameGraph
-    runs on the card, by source, and the number of all its kernels.  The
-    replay runs on whatever the graph's buffers hold; every call of the
-    graph's entry points overwrites them."""
+    runs on the card, by source, the number of all its kernels, their
+    device ms, the host wall ms of the same traced replay (launch to
+    synchronize) and the three kernels that take the most device time
+    (name, ms, count).  A graph captured from one stream runs its kernels
+    one after another, so kernel ms over that wall ms is the share of the
+    traced replay in which the card was busy; tracing stretches the gaps
+    between kernels, so the untraced share is no lower.  The replay runs on
+    whatever the graph's buffers hold; every call of the graph's entry
+    points overwrites them."""
     from torch.profiler import ProfilerActivity, profile
 
     graph.index.zero_()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
         graph.graph.replay()
         torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
     graph.index.zero_()
     kernels = [e for e in prof.events()
                if e.device_type == torch.autograd.DeviceType.CUDA]
     counts = {source: sum(function in e.name for e in kernels)
               for source, function in KERNEL_FUNCTIONS.items()}
-    return counts, len(kernels)
+    averages = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.self_device_time_total, reverse=True)
+    kernel_ms = sum(e.self_device_time_total for e in averages) / 1e3
+    top = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in averages[:3]]
+    return counts, len(kernels), kernel_ms, wall_ms, top
 
 
 def phase_pipeline(tag, cfg, n_frames, jax_positions, kernels) -> dict:
@@ -748,7 +922,7 @@ def phase_fused(kernels, staged) -> dict:
           f"capture and instantiate {graph.capture_seconds:.2f} s, peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
     want = expected_launches(cfg, 1, 1)
-    traced, n_kernels = replay_kernel_counts(graph)
+    traced, n_kernels, kernel_ms, traced_ms, top = replay_kernel_counts(graph)
     if graph.kernel_launches != want or traced != want:
         raise AssertionError(
             f"one replay should launch {want}: the wrappers counted "
@@ -761,7 +935,12 @@ def phase_fused(kernels, staged) -> dict:
           f"{n_kernels} kernels, of them "
           + ", ".join(f"{traced[src]} {fn}"
                       for src, fn in KERNEL_FUNCTIONS.items())
-          + f" (counted at capture: {graph.kernel_launches}) | max |fused - "
+          + f" (counted at capture: {graph.kernel_launches}), {kernel_ms:.2f} "
+          f"ms in a traced replay of {traced_ms:.2f} ms wall (busy share "
+          f"of the traced replay {kernel_ms / traced_ms:.3f}), most device "
+          "time in " + ", ".join(
+              f"{name[:48]} {ms:.2f} ms x{n}" for name, ms, n in top)
+          + f" | max |fused - "
           f"staged (phase 5)| {gap * 1e3:.4f} mm (both with atomic sums) | "
           f"{p9['fps']:.2f} frames/s fused against {staged['fps']:.2f} staged")
     return p9
@@ -1001,13 +1180,272 @@ def phase_repeatable(kernels, p5, p9) -> tuple:
     return staged, per_frame
 
 
+# Phase 13: lanes of the batched runs, frames per lane, and the chunked and
+# deterministic runs
+LANE_COUNTS = (1,) + KERNEL_LANES
+LANE_FRAMES = 8
+LANE_CHUNK, CHUNK_LANES = 4, 4
+DETERMINISTIC_LANES, DETERMINISTIC_FRAMES = 2, 6
+# a batched step against the lane's own step from the same state, under
+# deterministic sums (m for translations, absolute for quaternion
+# components): measured up to 8.8e-4 m and 4.2e-5 at 2 and 4 flagship lanes
+# over 6 frames on an H100 80GB HBM3 at 700 W (PERF.md): the batched
+# reductions round differently and the float32 plane-fit gates in mapping
+# move every step
+LANE_STEP_TOL_M, LANE_STEP_TOL_Q = 2e-3, 1e-4
+
+
+def lane_frames(n_lanes: int, n_frames: int):
+    """(xyz (K, B, N, 3), mask (K, B, N)) numpy: lane b is
+    ``synthetic_frames(seed=b)``, the flagship run through
+    ``World.urban(seed=b)``; lane 0 is phase 5's run."""
+    cfg = PROFILES["hdl64"]
+
+    def one(b):
+        return list(synthetic_frames(n_frames, cfg, n_azimuth=1800, speed=1.0,
+                                     seed=b))
+
+    with concurrent.futures.ThreadPoolExecutor(n_lanes) as pool:
+        lanes = list(pool.map(one, range(n_lanes)))
+    return (np.stack([[f[1] for f in lane] for lane in lanes], 1),
+            np.stack([[f[2] for f in lane] for lane in lanes], 1))
+
+
+def fused_lane_positions(cfg, xyz, mask) -> tuple:
+    """Each lane run alone through the fused single-lane frame: mapped
+    positions (B, K, 3) and the launches its replays made."""
+    graph = fused.frame_graph(cfg, "cuda")
+    replays = graph.replays
+    out = []
+    for b in range(xyz.shape[1]):
+        odo = OdometryState.init(cfg.scan.max_less_sharp,
+                                 cfg.scan.max_less_flat, "cuda")
+        mp = MappingState.init(cfg.mapping, "cuda")
+        rows = []
+        for k in range(xyz.shape[0]):
+            odo, mp, _, mout, _ = fused.fused_frame_step(
+                odo, mp, torch.from_numpy(xyz[k, b]),
+                torch.from_numpy(mask[k, b]), cfg)
+            rows.append(mout.t_w)
+        out.append(torch.stack(rows).cpu().numpy())
+    replays = graph.replays - replays
+    return np.stack(out), {name: n * replays
+                           for name, n in graph.kernel_launches.items()}
+
+
+def batched_run(kernels, cfg, xyz, mask, keep_steps=False) -> dict:
+    """The lanes of ``xyz`` (K, B, N, 3) through ``batched_frame_step``, one
+    graph replay per batched frame: positions (B, K, 3), capture seconds,
+    stream ms per batched frame, aggregate frames/s over frames 2-K, a
+    traced replay's kernels and busy share, and peak memory; with
+    ``keep_steps``, per frame the state before it and the outputs.  The
+    wrappers must count nothing: every launch is a replay's."""
+    K, B = xyz.shape[:2]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    graph = fused.frame_graph(cfg, "cuda", lanes=B)
+    replays = graph.replays
+    state = batch.init_batch_state(cfg, B)
+    for k in kernels:
+        k.launches = 0
+    timers = StageTimers(device=True)
+    rows, steps = [], []
+    torch.cuda.synchronize()
+    for i in range(K):
+        if i == 1:
+            torch.cuda.synchronize()
+            timers.reset()
+            t1 = time.perf_counter()
+        before = state
+        with timers.stage("batched_step"):
+            state, odo, mout = batch.batched_frame_step(
+                state, torch.from_numpy(xyz[i]), torch.from_numpy(mask[i]), cfg)
+        rows.append(mout.t_w)
+        if keep_steps:
+            steps.append((before, step_outputs(odo, mout)))
+    positions = torch.stack(rows, 1).cpu().numpy()
+    wall_ms = (time.perf_counter() - t1) * 1e3 / (K - 1)
+    if any(k.launches for k in kernels):
+        raise AssertionError(f"B={B}: the wrappers counted "
+                             f"{[k.launches for k in kernels]} during replays")
+    replays = graph.replays - replays
+    peak = torch.cuda.max_memory_allocated() / 2**20
+    traced, n_kernels, kernel_ms, traced_ms, top = replay_kernel_counts(graph)
+    want = expected_launches(cfg, 1, 1)
+    if graph.kernel_launches != want or traced != want:
+        raise AssertionError(
+            f"B={B}: one replay should launch {want} for all lanes: the "
+            f"wrappers counted {graph.kernel_launches} at capture, a traced "
+            f"replay ran {traced}")
+    if positions.shape != (B, K, 3) or not np.isfinite(positions).all():
+        raise AssertionError(f"B={B}: positions {positions.shape} not finite")
+    return dict(
+        B=B, positions=positions, warmup_s=graph.warmup_seconds,
+        capture_s=graph.capture_seconds,
+        stream_ms=timers.device_report()["batched_step"].mean_ms,
+        wall_ms=wall_ms, fps=B * 1e3 / wall_ms, n_kernels=n_kernels,
+        kernel_ms=kernel_ms, traced_ms=traced_ms, top=top,
+        busy=kernel_ms / traced_ms, peak_mib=peak, steps=steps,
+        graph_launches={name: n * replays
+                        for name, n in graph.kernel_launches.items()})
+
+
+def step_outputs(odo, mout) -> dict:
+    """A step's poses (odometry and mapping quaternion and translation)."""
+    return {"odom_q": odo.q_w, "odom_t": odo.t_w, "map_q": mout.q_w,
+            "map_t": mout.t_w}
+
+
+def _lane(tree, b):
+    """Lane ``b`` of a state whose leaves carry a leading lane axis."""
+    if isinstance(tree, torch.Tensor):
+        return tree[b]
+    return type(tree)(*(_lane(part, b) for part in tree))
+
+
+def lane_step_gaps(cfg, xyz, mask, steps) -> dict:
+    """Every lane of a batched run stepped alone through the fused
+    single-lane frame, each frame from the state the batched run carried
+    into it, against the batched step's outputs: the largest gap of each
+    pose output over lanes and frames, and the launches the single-lane
+    replays made."""
+    graph = fused.frame_graph(cfg, "cuda")
+    replays = graph.replays
+    gaps = dict.fromkeys(("odom_q", "odom_t", "map_q", "map_t"), 0.0)
+    for k, (before, batched) in enumerate(steps):
+        for b in range(xyz.shape[1]):
+            _, _, odo, mout, _ = fused.fused_frame_step(
+                _lane(before.odometry, b), _lane(before.mapping, b),
+                torch.from_numpy(xyz[k, b]), torch.from_numpy(mask[k, b]), cfg)
+            for name, got in step_outputs(odo, mout).items():
+                gaps[name] = max(gaps[name], float(
+                    (got - batched[name][b]).abs().max()))
+    replays = graph.replays - replays
+    return gaps, {name: n * replays
+                  for name, n in graph.kernel_launches.items()}
+
+
+def phase_lanes(kernels, p9) -> dict:
+    """Phase 13: the batched lanes at B = 1, 4 and 8 against each lane's
+    fused single-lane run and the JAX package's positions; the chunked
+    batched step; under deterministic sums, 2 lanes step by step against
+    each lane stepped alone from the same state, against the same lanes in
+    reverse order (1 mm) and against their fused runs (3 cm).  Returns
+    the launches made through graph replays."""
+    cfg = dataclasses.replace(PROFILES["hdl64"], fused_step=True)
+    xyz, mask = lane_frames(max(LANE_COUNTS), LANE_FRAMES)
+    alone, graph_launches = fused_lane_positions(cfg, xyz, mask)
+    jax_gap = _check_gap("phase 13 lane 0 vs the JAX package's",
+                         alone[0], JAX_MAPPED_POSITIONS[:LANE_FRAMES],
+                         POSITION_TOL_M)
+    runs = []
+    for B in LANE_COUNTS:
+        run = batched_run(kernels, cfg, xyz[:, :B], mask[:, :B])
+        run["jax_gap"] = _check_gap(
+            f"B={B} lane 0 vs the JAX package's", run["positions"][0],
+            JAX_MAPPED_POSITIONS[:LANE_FRAMES], POSITION_TOL_M)
+        run["gap"] = max(_check_gap(f"B={B} lane {b} vs its fused run",
+                                    run["positions"][b], alone[b])
+                         for b in range(B))
+        runs.append(run)
+        print(f"[13 lanes] B={B}: graph warm-up {run['warmup_s']:.2f} s, "
+              f"capture and instantiate {run['capture_s']:.2f} s | "
+              f"batched_step {run['stream_ms']:.2f} ms stream, "
+              f"{run['wall_ms']:.2f} ms host wall per batched frame (frames "
+              f"2-{LANE_FRAMES}) | {run['fps']:.2f} frames/s aggregate "
+              f"against {p9['fps']:.2f} fused single-lane (phase 9) | a "
+              f"traced replay ran {run['n_kernels']} kernels, "
+              f"{run['kernel_ms']:.2f} ms of kernels in {run['traced_ms']:.2f} "
+              f"ms wall (busy share of the traced replay {run['busy']:.3f}), "
+              "most device time in "
+              + ", ".join(f"{name[:48]} {ms:.2f} ms x{n}"
+                          for name, ms, n in run["top"])
+              + f" | peak memory {run['peak_mib']:.0f} MiB | "
+              f"max |lane - its fused run| {run['gap'] * 1e3:.4f} mm, "
+              f"|lane 0 - jax| {run['jax_gap'] * 1e3:.4f} mm")
+        for name, n in run["graph_launches"].items():
+            graph_launches[name] += n
+
+    # chunks of LANE_CHUNK frames over CHUNK_LANES lanes, against the
+    # per-frame batched run of the same lanes
+    per_frame = next(r for r in runs if r["B"] == CHUNK_LANES)
+    xs, ms = (torch.from_numpy(a[:, :CHUNK_LANES]) for a in (xyz, mask))
+    graph = fused.frame_graph(cfg, "cuda", chunk=LANE_CHUNK, lanes=CHUNK_LANES)
+    replays = graph.replays
+    state = batch.init_batch_state(cfg, CHUNK_LANES)
+    chunks = []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for k0 in range(0, LANE_FRAMES, LANE_CHUNK):
+        state, (_, _, _, map_t) = batch.batched_chunk_step(
+            state, xs[k0:k0 + LANE_CHUNK], ms[k0:k0 + LANE_CHUNK], cfg)
+        chunks.append(map_t.cpu().numpy())
+    chunk_fps = CHUNK_LANES * LANE_FRAMES / (time.perf_counter() - t0)
+    chunked = np.concatenate(chunks).transpose(1, 0, 2)
+    chunk_gap = max(_check_gap(f"chunked lane {b} vs per-frame batched",
+                               chunked[b], per_frame["positions"][b])
+                    for b in range(CHUNK_LANES))
+    for name, n in graph.kernel_launches.items():
+        graph_launches[name] += n * (graph.replays - replays)
+
+    # under deterministic sums, a lane-batching fault apart from the noise:
+    # each batched step against the same step of the lane alone, from the
+    # state the batched run carried into it (the batched reductions round
+    # differently, and over frames the float32 plane-fit gates grow that to
+    # mm, so whole runs are held only to SAME_CARD_TOL_M); and the same
+    # lanes in reverse order must give each lane the same positions (its
+    # place and its neighbours must not matter)
+    with deterministic_sums():
+        d_xyz = xyz[:DETERMINISTIC_FRAMES, :DETERMINISTIC_LANES]
+        d_mask = mask[:DETERMINISTIC_FRAMES, :DETERMINISTIC_LANES]
+        d_alone, d_launches = fused_lane_positions(cfg, d_xyz, d_mask)
+        d_run = batched_run(kernels, cfg, d_xyz, d_mask, keep_steps=True)
+        d_steps, step_launches = lane_step_gaps(cfg, d_xyz, d_mask,
+                                                d_run.pop("steps"))
+        d_flip = batched_run(kernels, cfg, d_xyz[:, ::-1].copy(),
+                             d_mask[:, ::-1].copy())
+    if (max(d_steps["odom_t"], d_steps["map_t"]) > LANE_STEP_TOL_M
+            or max(d_steps["odom_q"], d_steps["map_q"]) > LANE_STEP_TOL_Q):
+        raise AssertionError("deterministic sums: a batched step differs from "
+                             f"the lane's own step by {d_steps} (limits "
+                             f"{LANE_STEP_TOL_M} m, {LANE_STEP_TOL_Q})")
+    d_swap = max(_check_gap(f"deterministic lane {b}, lanes reversed",
+                            d_flip["positions"][::-1][b],
+                            d_run["positions"][b], REPEATABLE_TOL_M)
+                 for b in range(DETERMINISTIC_LANES))
+    d_gap = max(_check_gap(f"deterministic lane {b} vs its fused run",
+                           d_run["positions"][b], d_alone[b])
+                for b in range(DETERMINISTIC_LANES))
+    for name in graph_launches:
+        graph_launches[name] += (d_launches[name] + d_run["graph_launches"][name]
+                                 + step_launches[name]
+                                 + d_flip["graph_launches"][name])
+    print(f"[13 lanes] chunks of {LANE_CHUNK} frames x {CHUNK_LANES} lanes "
+          f"(capture {graph.capture_seconds:.2f} s): {chunk_fps:.2f} frames/s "
+          f"aggregate (host wall, all {LANE_FRAMES} frames), max |chunked - "
+          f"per-frame batched| {chunk_gap * 1e3:.4f} mm | deterministic sums, "
+          f"{DETERMINISTIC_LANES} lanes x {DETERMINISTIC_FRAMES} frames: max "
+          f"|batched step - the lane's own step from the same state| "
+          + " ".join(f"{n} {g:.3e}" for n, g in d_steps.items())
+          + f" (limits {LANE_STEP_TOL_M:g} m, {LANE_STEP_TOL_Q:g}), "
+          f"|lane - the same lane with the lanes reversed| "
+          f"{d_swap * 1e3:.6f} mm (limit {REPEATABLE_TOL_M * 1e3:g} mm), "
+          f"|lane - its fused run| {d_gap * 1e3:.4f} mm, batched_step "
+          f"{d_run['stream_ms']:.2f} ms | fused single lanes: |lane 0 - jax| "
+          f"{jax_gap * 1e3:.4f} mm | launches through graph replays "
+          f"{graph_launches}, none counted by the wrappers")
+    return dict(runs=runs, graph_launches=graph_launches)
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
     kernels = (KNN5, VOTE)
     phase_build(kernels)
     knn = phase_knn(dev)
+    knn_lanes = phase_knn_lanes(dev)
     vote = phase_vote(dev)
+    vote_lanes = phase_vote_lanes(dev)
     p5 = phase_pipeline("5 pipeline", PROFILES["hdl64"], N_FRAMES,
                         JAX_MAPPED_POSITIONS, kernels)
     p6 = phase_pipeline("6 mapping vote", mapping_vote_config(),
@@ -1030,15 +1468,18 @@ def main() -> int:
     with deterministic_sums():
         p11 = phase_checkpoint(kernels, p5)
         p12 = phase_repeatable(kernels, p5, p9)
+    p13 = phase_lanes(kernels, p9)
     runs = (p5, p6, p7, p8, p9) + p12
     launches = {name: sum(p["launches"][name] for p in runs) + p11[name]
                 for name in p5["launches"]}
     graph_launches = {name: sum(p["graph_launches"][name] for p in runs)
                       + p10[name] for name in p5["launches"]}
+    lane_launches = p13["graph_launches"]
 
     surf = knn[("surf", "below")]
     odo = vote[VOTE_SHAPES[0]]
-    knn_err = max(v["err"] for v in knn.values())
+    knn_err = max([v["err"] for v in knn.values()]
+                  + [v["max_abs_err"] for v in knn_lanes.values()])
     print(json.dumps({"kernels": [
         {"name": "knn5", "route": "cuda",
          "source": "light_loam_tpu_torch/csrc/knn.cu",
@@ -1052,13 +1493,20 @@ def main() -> int:
              {k: v[k] for k in ("Q", "N", "qc", "rc", "ms", "plain_ms",
                                 "device_ms", "bound_ms", "bound_by")}
              | {"max_abs_err": v["err"]}
-             for (_, case), v in knn.items() if case == "below"]},
+             for (_, case), v in knn.items() if case == "below"],
+         "lane_launches": lane_launches["knn.cu"],
+         "lanes": [
+             {k: v[k] for k in ("B", "Q", "N", "counts", "max_abs_err",
+                                "tie_swaps", "ms", "plain_ms", "device_ms",
+                                "singles_device_ms", "bound_ms", "bound_by")}
+             for v in knn_lanes.values()]},
         {"name": "compat_votes", "route": "cuda",
          "source": "light_loam_tpu_torch/csrc/vote.cu",
          "replaces": "light_loam_tpu/ops/pallas_vote.py:33",
          "launches": launches["vote.cu"],
          "graph_launches": graph_launches["vote.cu"],
-         "max_abs_err": max(v["err"] for v in vote.values()),
+         "max_abs_err": max([v["err"] for v in vote.values()]
+                            + [v["max_abs_err"] for v in vote_lanes.values()]),
          "ms": odo["ms"], "plain_ms": odo["plain_ms"],
          "device_ms": odo["device_ms"], "bound_ms": odo["bound_ms"],
          "bound_by": odo["bound_by"], "library_ms": None,
@@ -1067,7 +1515,13 @@ def main() -> int:
               "plain_ms": v["plain_ms"], "device_ms": v["device_ms"],
               "plain_device_ms": v["plain_device_ms"],
               "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
-             for (R, K), v in vote.items()]},
+             for (R, K), v in vote.items()],
+         "lane_launches": lane_launches["vote.cu"],
+         "lanes": [
+             {k: v[k] for k in ("B", "R", "K", "max_abs_err", "ms",
+                                "plain_ms", "device_ms", "plain_device_ms",
+                                "singles_device_ms", "bound_ms", "bound_by")}
+             for v in vote_lanes.values()]},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -72,8 +72,8 @@ def quat_slerp_identity(q: torch.Tensor, s) -> torch.Tensor:
     safe_sin = torch.where(small, torch.ones_like(sin_theta), sin_theta)
     c_id = torch.where(small, 1.0 - s, torch.sin((1.0 - s) * theta) / safe_sin)
     c_q = torch.where(small, s, torch.sin(s * theta) / safe_sin)
-    ident = torch.zeros_like(q)
-    ident[..., 3] = 1.0
+    ident = torch.cat([torch.zeros_like(q[..., :3]),
+                       torch.ones_like(q[..., 3:])], dim=-1)
     out = c_id[..., None] * ident + (c_q * sign)[..., None] * q
     return quat_normalize(out)
 

@@ -1,5 +1,5 @@
 // knn5: masked 5-nearest-neighbour search for the scan-to-map stage, with the
-// reference sweep split across blocks.
+// reference sweep split across blocks, for B independent lanes per launch.
 //
 // Replaces the Pallas TPU kernel light_loam_tpu/ops/pallas_knn.py
 // (knn_pallas -> _knn_impl -> _knn_kernel, with _select_k): for each query
@@ -9,6 +9,14 @@
 // from a device int32 pair, rows at or past query_count write (1e30, 0), and
 // only references below ref_count are visited.  Slots left without a live
 // neighbour keep (1e30, 0).
+//
+// Lanes (the grid axis B of _knn_impl, pallas_knn.py:155, 175-181, which
+// _knn_fn's vmap rule fills): B searches, each with its own query, reference,
+// mask and counts pair, stacked on a leading axis, run as one launch.  The
+// lane is the grid's last axis (z for the segments, y for the merge); a
+// block reads its lane's counts on the device and offsets every pointer by
+// the lane's stride, and does nothing else differently, so a lane's result
+// is the single search's, bit for bit, and B = 1 is the single launch.
 //
 // What bounds it on an H100: FP32 issue.  Per (query, reference) pair the
 // work is about 8 FLOP (the 3-term dot, |q|^2 + |r|^2, the -2 q.r FMA, the
@@ -165,9 +173,9 @@ __device__ __forceinline__ void append_unless_above(unsigned& addr, float x,
       : "memory");
 }
 
-// Block (x, y): queries [x * QB, x * QB + QB) against reference segment y,
-// one query per thread; writes each live query's segment list to
-// part_(d|i)[y][row][0..4].
+// Block (x, y, z): lane z's queries [x * QB, x * QB + QB) against its
+// reference segment y, one query per thread; writes each live query's
+// segment list to part_(d|i)[z][y][row][0..4].
 __global__ void __launch_bounds__(QB)
 knn5_segment_kernel(const float* __restrict__ query,
                     const float* __restrict__ ref,
@@ -178,6 +186,13 @@ knn5_segment_kernel(const float* __restrict__ query,
   // query column c's queue: slots c, c + QB, ... (bits of x, index)
   __shared__ int2 cand[QCAP * QB];
 
+  const long long seq = blockIdx.z;  // the lane (sequence), not a warp lane
+  query += seq * Q * 3;
+  ref += seq * N * 3;
+  mask += seq * N;
+  counts += 2 * seq;
+  part_d += seq * gridDim.y * Q * K;
+  part_i += seq * gridDim.y * Q * K;
   const int qc = min(counts[0], Q);
   const int rc = min(counts[1], N);
   const int first_row = static_cast<int>(blockIdx.x) * QB;
@@ -292,14 +307,20 @@ knn5_segment_kernel(const float* __restrict__ query,
   }
 }
 
-// One warp per row: the lexicographic top-5 of the row's S lists, by five
-// rounds of a warp-wide lexicographic minimum; rows at or past qc get
-// (1e30, 0).
+// One warp per row of lane blockIdx.y: the lexicographic top-5 of the row's
+// S lists, by five rounds of a warp-wide lexicographic minimum; rows at or
+// past qc get (1e30, 0).
 __global__ void __launch_bounds__(32 * MERGE_WARPS)
 knn5_merge_kernel(const int* __restrict__ counts, int Q, int segments,
                   const float* __restrict__ part_d,
                   const int* __restrict__ part_i, float* __restrict__ out_d,
                   int* __restrict__ out_i) {
+  const long long seq = blockIdx.y;  // the lane (sequence), not a warp lane
+  counts += 2 * seq;
+  part_d += seq * segments * Q * K;
+  part_i += seq * segments * Q * K;
+  out_d += seq * Q * K;
+  out_i += seq * Q * K;
   const int row = static_cast<int>(blockIdx.x) * MERGE_WARPS +
                   static_cast<int>(threadIdx.x >> 5);
   const int lane = static_cast<int>(threadIdx.x & 31);
@@ -362,34 +383,34 @@ knn5_merge_kernel(const int* __restrict__ counts, int Q, int segments,
 
 }  // namespace
 
-// query (Q,3) f32, ref (N,3) f32, mask (N,) bool, counts (2,) int32
-// [query_count, ref_count], all on `device`; writes out_d (Q,5) f32 and
-// out_i (Q,5) int32.  The segment count (1 to 32) comes from the wrapper,
-// with scratch part_d (segments,Q,5) f32 and part_i (segments,Q,5) int32.
-// Launches the segment kernel and the merge on `stream`; returns
-// cudaGetLastError().
+// B lanes of: query (Q,3) f32, ref (N,3) f32, mask (N,) bool, counts (2,)
+// int32 [query_count, ref_count], each stacked on a leading axis of B, all on
+// `device`; writes out_d (B,Q,5) f32 and out_i (B,Q,5) int32.  The segment
+// count (1 to 32) comes from the wrapper, with scratch part_d
+// (B,segments,Q,5) f32 and part_i (B,segments,Q,5) int32.  Launches the
+// segment kernel and the merge on `stream`; returns cudaGetLastError().
 extern "C" int knn5_launch(const void* query, const void* ref,
-                           const void* mask, const void* counts, int Q, int N,
-                           int segments, void* part_d, void* part_i,
+                           const void* mask, const void* counts, int B, int Q,
+                           int N, int segments, void* part_d, void* part_i,
                            void* out_d, void* out_i, int device,
                            void* stream) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (Q <= 0) return 0;
-  if (segments < 1 || segments > MAX_SEGMENTS) {
+  if (Q <= 0 || B <= 0) return 0;
+  if (segments < 1 || segments > MAX_SEGMENTS || B > 65535) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   const auto* c = static_cast<const int*>(counts);
   auto* pd = static_cast<float*>(part_d);
   auto* pi = static_cast<int*>(part_i);
   auto st = static_cast<cudaStream_t>(stream);
-  knn5_segment_kernel<<<dim3((Q + QB - 1) / QB, segments), QB, 0, st>>>(
+  knn5_segment_kernel<<<dim3((Q + QB - 1) / QB, segments, B), QB, 0, st>>>(
       static_cast<const float*>(query), static_cast<const float*>(ref),
       static_cast<const unsigned char*>(mask), c, Q, N, pd, pi);
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  knn5_merge_kernel<<<(Q + MERGE_WARPS - 1) / MERGE_WARPS, 32 * MERGE_WARPS,
-                      0, st>>>(c, Q, segments, pd, pi,
+  knn5_merge_kernel<<<dim3((Q + MERGE_WARPS - 1) / MERGE_WARPS, B),
+                      32 * MERGE_WARPS, 0, st>>>(c, Q, segments, pd, pi,
                                static_cast<float*>(out_d),
                                static_cast<int*>(out_i));
   return static_cast<int>(cudaGetLastError());

@@ -23,7 +23,10 @@ caller's states and frames are copied into its static buffers, the
 captured step writes the new state back over the old one and its outputs
 into row ``index`` of per-chunk buffers, and copies of the results are
 handed back.  So the entry points stay functions of their arguments, and K
-frames of a chunk replay back to back with no host read between them.
+frames of a chunk replay back to back with no host read between them.  The
+same class captures the batched lanes of models/batch.py: given a lane count
+B, its frames, states and output rows carry a lane axis after the chunk
+axis, and the captured step is the vmapped body over all B lanes.
 
 On CUDA a capture that fails raises; there is no eager fallback.  The
 staged path remains the default and is required for async mapping and for
@@ -33,7 +36,7 @@ the non-mapping frames of ``skip_frame_num > 1``.
 from __future__ import annotations
 
 import time
-from typing import Dict, NamedTuple, Tuple
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -144,13 +147,38 @@ def _clone(tree):
     return type(tree)(*(_clone(part) for part in tree))
 
 
+def stack_lanes(tree, lanes: int):
+    """``lanes`` copies of every tensor of nested NamedTuples, stacked on a
+    new leading axis."""
+    if isinstance(tree, torch.Tensor):
+        return tree.expand((lanes,) + tuple(tree.shape)).contiguous()
+    return type(tree)(*(stack_lanes(part, lanes) for part in tree))
+
+
+def _lanes_frame_body(odo_state, map_state, xyz, mask, cfg):
+    """B lanes of one frame (models/batch.py ``_batched_body``) in the
+    fused body's form.  The batched body has no divergence containment, as
+    the JAX package's has none: ``diverged`` only reports each lane's
+    non-finite odometry translation."""
+    # models/batch.py builds on this module, so it is imported at first use
+    from light_loam_tpu_torch.models.batch import BatchState, _batched_body
+
+    state, odo, mout = _batched_body(BatchState(odo_state, map_state), xyz,
+                                     mask, cfg)
+    return (state.odometry, state.mapping, odo, mout,
+            ~torch.isfinite(odo.t_w).all(-1))
+
+
 class FrameGraph:
     """The fused frame of one (config, device) captured as a CUDA graph,
     with the static buffers it replays on: ``chunk`` frames of input, the
     odometry and mapping state, and ``chunk`` rows of output.  The graph
     holds one frame and a chunk is ``chunk`` replays of it (a whole chunk
     captured as one graph took as long to replay and ``chunk`` times as
-    long to capture, PERF.md).
+    long to capture, PERF.md).  With ``lanes`` = B the graph holds one
+    frame of B lanes (models/batch.py): frames (chunk, B, N, 3), states
+    stacked over B, rows (chunk, B, ...).  ``lanes=None`` is the single
+    fused frame.
 
     ``kernel_launches`` is what the hand-written kernels' wrappers counted
     while the step was captured, so what one replay launches; ``replays``
@@ -158,31 +186,37 @@ class FrameGraph:
     own counts alone."""
 
     def __init__(self, cfg: PipelineConfig, device: torch.device,
-                 chunk: int = 1):
+                 chunk: int = 1, lanes: Optional[int] = None):
         self.cfg, self.device, self.chunk = cfg, device, chunk
+        self._body = _fused_frame_body if lanes is None else _lanes_frame_body
         n = cfg.scan.max_points
-        self.xyz = torch.zeros((chunk, n, 3), device=device)
-        self.mask = torch.zeros((chunk, n), dtype=torch.bool, device=device)
+        lead = (chunk,) if lanes is None else (chunk, lanes)
+        self.xyz = torch.zeros(lead + (n, 3), device=device)
+        self.mask = torch.zeros(lead + (n,), dtype=torch.bool, device=device)
         # frames arrive from the host through pinned memory, so the copy to
         # the card does not wait; `_staged` marks the last such copy done
-        self._pinned_xyz = torch.zeros((chunk, n, 3)).pin_memory()
-        self._pinned_mask = torch.zeros((chunk, n), dtype=torch.bool).pin_memory()
+        self._pinned_xyz = torch.zeros(lead + (n, 3)).pin_memory()
+        self._pinned_mask = torch.zeros(lead + (n,),
+                                        dtype=torch.bool).pin_memory()
         self._staged = None
         # the chunk frame the next captured step reads and the row it writes
         self.index = torch.zeros(1, dtype=torch.int64, device=device)
         self.odo_state = OdometryState.init(
             cfg.scan.max_less_sharp, cfg.scan.max_less_flat, device)
         self.map_state = MappingState.init(cfg.mapping, device)
+        if lanes is not None:
+            self.odo_state = stack_lanes(self.odo_state, lanes)
+            self.map_state = stack_lanes(self.map_state, lanes)
         i32 = dict(dtype=torch.int32, device=device)
         self.rows = ChunkOutput(
-            odom_q=torch.zeros((chunk, 4), device=device),
-            odom_t=torch.zeros((chunk, 3), device=device),
-            map_q=torch.zeros((chunk, 4), device=device),
-            map_t=torch.zeros((chunk, 3), device=device),
-            diverged=torch.zeros(chunk, dtype=torch.bool, device=device),
-            map_corner_points=torch.zeros(chunk, **i32),
-            map_surf_points=torch.zeros(chunk, **i32),
-            local_overflow=torch.zeros(chunk, **i32),
+            odom_q=torch.zeros(lead + (4,), device=device),
+            odom_t=torch.zeros(lead + (3,), device=device),
+            map_q=torch.zeros(lead + (4,), device=device),
+            map_t=torch.zeros(lead + (3,), device=device),
+            diverged=torch.zeros(lead, dtype=torch.bool, device=device),
+            map_corner_points=torch.zeros(lead, **i32),
+            map_surf_points=torch.zeros(lead, **i32),
+            local_overflow=torch.zeros(lead, **i32),
         )
         self.last = None           # (odo, mout, diverged) of the last step
         self.replays = 0
@@ -194,7 +228,7 @@ class FrameGraph:
         """One frame on the static buffers: read frame ``index``, advance
         the state in place, write row ``index``, move ``index`` on."""
         i = self.index
-        odo_state, map_state, odo, mout, diverged = _fused_frame_body(
+        odo_state, map_state, odo, mout, diverged = self._body(
             self.odo_state, self.map_state,
             self.xyz.index_select(0, i)[0], self.mask.index_select(0, i)[0],
             self.cfg)
@@ -250,7 +284,8 @@ class FrameGraph:
 
     def run(self, odo_state: OdometryState, map_state: MappingState,
             xyz: torch.Tensor, mask: torch.Tensor):
-        """``chunk`` frames (xyz (chunk, N, 3), mask (chunk, N), on the
+        """``chunk`` frames (xyz (chunk, N, 3), mask (chunk, N), each with
+        a lane axis after the chunk axis when the graph has lanes; on the
         host or on the card) from the given states: returns copies of the
         new states and of the chunk's output rows."""
         if xyz.shape != self.xyz.shape or mask.shape != self.mask.shape:
@@ -272,15 +307,16 @@ class FrameGraph:
 _GRAPHS: Dict[tuple, FrameGraph] = {}
 
 
-def frame_graph(cfg: PipelineConfig, device, chunk: int = 1) -> FrameGraph:
-    """The captured frame of (cfg, device, chunk), captured at first use.
-    A failed capture raises and leaves nothing behind."""
+def frame_graph(cfg: PipelineConfig, device, chunk: int = 1,
+                lanes: Optional[int] = None) -> FrameGraph:
+    """The captured frame of (cfg, device, chunk, lanes), captured at
+    first use.  A failed capture raises and leaves nothing behind."""
     device = torch.device(device)
     if device.index is None:
         device = torch.device("cuda", torch.cuda.current_device())
-    key = (cfg, device, chunk)
+    key = (cfg, device, chunk, lanes)
     if key not in _GRAPHS:
-        _GRAPHS[key] = FrameGraph(cfg, device, chunk)
+        _GRAPHS[key] = FrameGraph(cfg, device, chunk, lanes)
     return _GRAPHS[key]
 
 

@@ -2,8 +2,16 @@
 
 Replaces ``light_loam_tpu/ops/pallas_knn.py`` (``knn_pallas``), the
 nearestKSearch(5) of the scan-to-map loop (laserMapping.cpp:1882,1948).
-``knn5`` launches ``csrc/knn.cu`` for CUDA tensors and runs ``knn5_plain``
-for CPU tensors; it never falls back from one to the other.
+``knn5`` is a custom operator (``torch.ops.light_loam_tpu_torch.knn5``): its
+CUDA kernel launches ``csrc/knn.cu`` and its CPU kernel runs ``knn5_plain``;
+it never falls back from one to the other.
+
+Under ``torch.vmap`` (the batched lanes, models/batch.py) its vmap rule, the
+counterpart of ``_knn_fn``'s ``custom_vmap`` rule, moves the lane axis to
+the front, broadcasts operands that have none, and runs all B lanes as one
+launch of the kernel's lane axis: (B, Q, 3) queries, (B, N, 3) references,
+(B, N) masks and (B, 2) counts.  On the CPU it runs the plain version per
+lane.  ``KNN5.launches`` counts one launch per call, whatever B is.
 
 Contract of both, the JAX package's ``knn_pallas`` with its counts:
 
@@ -25,7 +33,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import torch
 
@@ -36,7 +44,7 @@ K = 5
 
 KNN5 = CudaKernel(
     "knn.cu", "knn5_launch",
-    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 3 + [ctypes.c_void_p] * 4
+    [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p] * 4
     + [ctypes.c_int, ctypes.c_void_p],
 )
 
@@ -131,32 +139,70 @@ def _check(name, t, dtype, shape, device):
         raise ValueError(f"knn5: {name} must be contiguous")
 
 
-def knn5(query: torch.Tensor, ref: torch.Tensor, mask: torch.Tensor,
-         counts: torch.Tensor):
-    """5-NN of each query among the masked-in references (module
-    docstring).  query (Q, 3) f32, ref (N, 3) f32, mask (N,) bool, counts
-    (2,) int32.  CUDA tensors launch ``csrc/knn.cu``; CPU tensors run
-    ``knn5_plain``."""
-    if not query.is_cuda:
-        return knn5_plain(query, ref, mask, counts)
-    Q, N = query.shape[0], ref.shape[0]
+def _launch(query: torch.Tensor, ref: torch.Tensor, mask: torch.Tensor,
+            counts: torch.Tensor):
+    """One launch of ``csrc/knn.cu`` over B lanes: query (B, Q, 3), ref
+    (B, N, 3), mask (B, N), counts (B, 2) -> (B, Q, 5) f32, (B, Q, 5)
+    i32."""
+    B, Q, N = query.shape[0], query.shape[1], ref.shape[1]
     dev = query.device
-    _check("query", query, torch.float32, (Q, 3), dev)
-    _check("ref", ref, torch.float32, (N, 3), dev)
-    _check("mask", mask, torch.bool, (N,), dev)
-    _check("counts", counts, torch.int32, (2,), dev)
+    _check("query", query, torch.float32, (B, Q, 3), dev)
+    _check("ref", ref, torch.float32, (B, N, 3), dev)
+    _check("mask", mask, torch.bool, (B, N), dev)
+    _check("counts", counts, torch.int32, (B, 2), dev)
     geom = knn_geometry(Q, N)
-    out_d = torch.empty((Q, K), dtype=torch.float32, device=dev)
-    out_i = torch.empty((Q, K), dtype=torch.int32, device=dev)
-    part_d = torch.empty((geom.segments, Q, K), dtype=torch.float32,
+    out_d = torch.empty((B, Q, K), dtype=torch.float32, device=dev)
+    out_i = torch.empty((B, Q, K), dtype=torch.int32, device=dev)
+    part_d = torch.empty((B, geom.segments, Q, K), dtype=torch.float32,
                          device=dev)
-    part_i = torch.empty((geom.segments, Q, K), dtype=torch.int32,
+    part_i = torch.empty((B, geom.segments, Q, K), dtype=torch.int32,
                          device=dev)
     KNN5.launch(
         query.data_ptr(), ref.data_ptr(), mask.data_ptr(), counts.data_ptr(),
-        Q, N, geom.segments,
+        B, Q, N, geom.segments,
         part_d.data_ptr(), part_i.data_ptr(),
         out_d.data_ptr(), out_i.data_ptr(), dev.index,
         torch.cuda.current_stream(dev).cuda_stream,
     )
     return out_d, out_i
+
+
+@torch.library.custom_op("light_loam_tpu_torch::knn5", mutates_args=(),
+                         device_types="cpu")
+def knn5(query: torch.Tensor, ref: torch.Tensor, mask: torch.Tensor,
+         counts: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """5-NN of each query among the masked-in references (module
+    docstring).  query (Q, 3) f32, ref (N, 3) f32, mask (N,) bool, counts
+    (2,) int32.  CUDA tensors launch ``csrc/knn.cu``; CPU tensors run
+    ``knn5_plain``."""
+    return knn5_plain(query, ref, mask, counts)
+
+
+@knn5.register_kernel("cuda")
+def _knn5_cuda(query, ref, mask, counts):
+    if query.dim() != 2:
+        raise ValueError(f"knn5: query has shape {tuple(query.shape)}, "
+                         "expected (Q, 3)")
+    d, i = _launch(query[None], ref[None], mask[None], counts[None])
+    return d[0], i[0]
+
+
+def lanes_first(x: torch.Tensor, dim, lanes: int) -> torch.Tensor:
+    """An operand of a vmap rule with its lane axis in front, contiguous; an
+    operand without one is broadcast to every lane (``ensure`` in the JAX
+    package's rules)."""
+    if dim is None:
+        x = x.expand((lanes,) + tuple(x.shape))
+    else:
+        x = x.movedim(dim, 0)
+    return x.contiguous()
+
+
+@knn5.register_vmap
+def _knn5_lanes(info, in_dims, query, ref, mask, counts):
+    lanes = [lanes_first(x, d, info.batch_size)
+             for x, d in zip((query, ref, mask, counts), in_dims)]
+    if lanes[0].is_cuda:
+        return _launch(*lanes), (0, 0)
+    outs = [knn5_plain(*lane) for lane in zip(*lanes)]
+    return tuple(torch.stack(o) for o in zip(*outs)), (0, 0)

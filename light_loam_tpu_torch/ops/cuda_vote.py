@@ -6,11 +6,15 @@ each of R chunks of K correspondences, with Gram-form Euclidean distance
 matrices over src and over tgt, score = exp(−(ds − dt)² / res²); row i's
 vote counts the j ≠ i with score < threshold and both ends valid.
 
-``compat_votes`` launches ``csrc/vote.cu`` for CUDA tensors and runs
-``compat_votes_plain`` for CPU tensors; it never falls back from one to
-the other.  The kernel's launch geometry (``vote_geometry``) and the band
-of exp arguments it decides without calling ``expf`` (``exp_band``) are
-computed here, on the host.
+``compat_votes`` is a custom operator
+(``torch.ops.light_loam_tpu_torch.compat_votes``): its CUDA kernel launches
+``csrc/vote.cu`` and its CPU kernel runs ``compat_votes_plain``; it never
+falls back from one to the other.  Under ``torch.vmap`` its vmap rule, the
+counterpart of ``_batched_votes_fn``'s, flattens the lane and chunk axes
+(B, R) into B·R chunks of one call: the chunks are independent, so on the
+card B lanes are one launch of the same kernel.  The kernel's launch
+geometry (``vote_geometry``) and the band of exp arguments it decides
+without calling ``expf`` (``exp_band``) are computed here, on the host.
 """
 
 from __future__ import annotations
@@ -24,6 +28,7 @@ import numpy as np
 import torch
 
 from light_loam_tpu_torch.ops.cuda_build import CudaKernel
+from light_loam_tpu_torch.ops.cuda_knn import lanes_first
 
 VOTE = CudaKernel(
     "vote.cu", "compat_votes_launch",
@@ -122,14 +127,22 @@ def _check(name, t, shape, device):
         raise ValueError(f"compat_votes: {name} must be contiguous")
 
 
+@torch.library.custom_op("light_loam_tpu_torch::compat_votes",
+                         mutates_args=(), device_types="cpu")
 def compat_votes(src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor,
                  threshold: float = 0.96,
                  resolution: float = 1.0) -> torch.Tensor:
     """Incompatibility votes per chunked correspondence: src, tgt (R, K, 3)
     f32, valid (R, K) f32 -> (R, K) f32 counts.  CUDA tensors launch
     ``csrc/vote.cu``; CPU tensors run ``compat_votes_plain``."""
-    if not src.is_cuda:
-        return compat_votes_plain(src, tgt, valid, threshold, resolution)
+    return compat_votes_plain(src, tgt, valid, threshold, resolution)
+
+
+@compat_votes.register_kernel("cuda")
+def _compat_votes_cuda(src, tgt, valid, threshold=0.96, resolution=1.0):
+    if valid.dim() != 2:
+        raise ValueError(f"compat_votes: valid has shape "
+                         f"{tuple(valid.shape)}, expected (R, K)")
     R, K = valid.shape
     dev = src.device
     _check("src", src, (R, K, 3), dev)
@@ -145,6 +158,17 @@ def compat_votes(src: torch.Tensor, tgt: torch.Tensor, valid: torch.Tensor,
         votes.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     return votes
+
+
+@compat_votes.register_vmap
+def _compat_votes_lanes(info, in_dims, src, tgt, valid, threshold=0.96,
+                        resolution=1.0):
+    src, tgt, valid = (lanes_first(x, d, info.batch_size)
+                       for x, d in zip((src, tgt, valid), in_dims))
+    B, R, K = valid.shape
+    votes = compat_votes(src.reshape(B * R, K, 3), tgt.reshape(B * R, K, 3),
+                         valid.reshape(B * R, K), threshold, resolution)
+    return votes.reshape(B, R, K), 0
 
 
 @functools.lru_cache(maxsize=None)

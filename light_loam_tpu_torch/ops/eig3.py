@@ -57,6 +57,6 @@ def eigh3x3(A: torch.Tensor):
     # degenerate (repeated λ): e_x — callers gate such cases out via the
     # λ2 > 3 λ1 line test anyway
     good = norm[..., 0] > 1e-12
-    ex = torch.zeros_like(v)
-    ex[..., 0] = 1.0
+    ex = torch.cat([torch.ones_like(v[..., :1]),
+                    torch.zeros_like(v[..., 1:])], dim=-1)
     return vals, torch.where(good[..., None], v / norm, ex)

@@ -115,20 +115,20 @@ def build_range_image(
     ok_s = ok[order]
 
     pos = torch.arange(n, device=dev)
-    ring_start = torch.full((R + 1,), n, dtype=torch.int64, device=dev)
-    ring_start.scatter_reduce_(0, ring_s, pos, "amin", include_self=True)
+    ring_start = torch.full((R + 1,), n, dtype=torch.int64, device=dev
+                            ).scatter_reduce(0, ring_s, pos, "amin",
+                                             include_self=True)
     col = pos - ring_start[ring_s]
     keep = ok_s & (col < H)
     flat_idx = torch.where(keep, ring_s * H + col,
                            torch.full_like(col, R * H))
 
-    grid_xyz = xyz.new_zeros((R * H + 1, 3))
-    grid_xyz[flat_idx] = xyz[order]
-    grid_rel = rel.new_zeros((R * H + 1,))
-    grid_rel[flat_idx] = rel[order]
-    grid_mask = torch.zeros(R * H + 1, dtype=torch.bool, device=dev)
-    grid_mask[flat_idx] = keep
-    counts = torch.zeros(R + 1, dtype=torch.int32, device=dev).index_add_(
+    grid_xyz = xyz.new_zeros((R * H + 1, 3)).index_put((flat_idx,),
+                                                       xyz[order])
+    grid_rel = rel.new_zeros((R * H + 1,)).index_put((flat_idx,), rel[order])
+    grid_mask = torch.zeros(R * H + 1, dtype=torch.bool, device=dev
+                            ).index_put((flat_idx,), keep)
+    counts = torch.zeros(R + 1, dtype=torch.int32, device=dev).index_add(
         0, ring_s, keep.to(torch.int32))[:R]
     return RangeImage(
         xyz=grid_xyz[: R * H].reshape(R, H, 3),

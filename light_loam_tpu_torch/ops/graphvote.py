@@ -61,17 +61,16 @@ def _chunk_layout(valid: torch.Tensor, n_regions: int):
 
 
 def _chunk_sizes(n_valid, base, n_regions: int):
-    sizes = base.expand(n_regions).clone()
-    sizes[n_regions - 1] = n_valid - base * (n_regions - 1)
-    return sizes
+    return torch.cat([base.expand(n_regions - 1),
+                      (n_valid - base * (n_regions - 1))[None]])
 
 
 def _scatter_chunks(values, valid, chunk_id, offset, n_regions: int, K: int):
     """Scatter (Q, ...) values into (n_regions, K, ...) chunk buffers."""
     dest = torch.where(valid, chunk_id * K + torch.clamp(offset, max=K - 1),
                        torch.full_like(chunk_id, n_regions * K))
-    out = values.new_zeros((n_regions * K + 1,) + values.shape[1:])
-    out[dest] = values
+    out = values.new_zeros((n_regions * K + 1,) + values.shape[1:]
+                           ).index_put((dest,), values)
     return out[: n_regions * K].reshape((n_regions, K) + values.shape[1:])
 
 

@@ -39,8 +39,9 @@ def pairwise_sq_dist(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     a2 = torch.sum(a * a, dim=-1, keepdim=True)
     b2 = torch.sum(b * b, dim=-1, keepdim=True)
     # a2 + b2ᵀ − 2·(a·bᵀ), op for op, but in place: two (Q, N) buffers
+    # (clamp_min_, not clamp_: only the former has a vmap batching rule)
     cross = (a @ b.T).mul_(2.0)
-    return (a2 + b2.T).sub_(cross).clamp_(min=0.0)
+    return (a2 + b2.T).sub_(cross).clamp_min_(0.0)
 
 
 def _masked_min(d: torch.Tensor, mask: torch.Tensor):
@@ -192,7 +193,7 @@ def surf_correspondences_grid(
         d = pairwise_sq_dist(query_xyz, chunk)
         d = d.masked_fill_(~cmask[None, :], BIG).view(Q, rpt, C)
         d1, i1 = torch.min(d, dim=-1)                           # (Q, rpt)
-        d2, i2 = torch.min(d.scatter_(-1, i1[..., None], BIG), dim=-1)
+        d2, i2 = torch.min(d.scatter(-1, i1[..., None], BIG), dim=-1)
         rd1.append(d1)
         ri1.append(i1)
         rd2.append(d2)

@@ -51,14 +51,14 @@ def voxel_segment_reduce(
     seg = torch.where(valid_s, torch.clamp(seg, 0, m), torch.full_like(seg, m))
 
     zero = torch.zeros((), device=xyz.device)
-    cnt = xyz.new_zeros(m + 1).index_add_(0, seg, valid_s.to(xyz.dtype))
-    sum_xyz = xyz.new_zeros((m + 1, 3)).index_add_(
+    cnt = xyz.new_zeros(m + 1).index_add(0, seg, valid_s.to(xyz.dtype))
+    sum_xyz = xyz.new_zeros((m + 1, 3)).index_add(
         0, seg, torch.where(valid_s[:, None], xyz[order], zero))
     # exactly one head per segment: these adds write each key/cell once
-    ukey = torch.zeros(m + 1, dtype=torch.int64, device=xyz.device).index_add_(
+    ukey = torch.zeros(m + 1, dtype=torch.int64, device=xyz.device).index_add(
         0, seg, torch.where(head, key_s, torch.zeros_like(key_s)))
     cell_s = cell[order].to(torch.int32)
-    ucell = torch.zeros(m + 1, dtype=torch.int32, device=xyz.device).index_add_(
+    ucell = torch.zeros(m + 1, dtype=torch.int32, device=xyz.device).index_add(
         0, seg, torch.where(head, cell_s, torch.zeros_like(cell_s)))
     return ukey[:m], sum_xyz[:m], cnt[:m], ucell[:m]
 
@@ -92,8 +92,8 @@ def merge_sorted(
     # matched voxels: running centroid; untouched live rows divide by
     # exactly 1 and stay bitwise intact
     tgt = torch.where(match, pm, torch.full_like(pm, n))
-    add_cnt = store_xyz.new_zeros(n + 1).index_add_(0, tgt, ucnt)[:n]
-    add_sum = store_xyz.new_zeros((n + 1, 3)).index_add_(0, tgt, usum)[:n]
+    add_cnt = store_xyz.new_zeros(n + 1).index_add(0, tgt, ucnt)[:n]
+    add_sum = store_xyz.new_zeros((n + 1, 3)).index_add(0, tgt, usum)[:n]
     w = store_mask.to(store_xyz.dtype)
     denom = torch.clamp(w + add_cnt, min=1.0)
     sxyz = (store_xyz * w[:, None] + add_sum) / denom[:, None]
@@ -106,9 +106,9 @@ def merge_sorted(
     fpos = p + frank
     fp = torch.where(fresh & (fpos < n), fpos, torch.full_like(fpos, n))
     iota_m = torch.arange(m, device=dev)
-    ind = torch.zeros(n + 1, dtype=torch.int64, device=dev).index_add_(
+    ind = torch.zeros(n + 1, dtype=torch.int64, device=dev).index_add(
         0, fp, torch.ones_like(fp))[:n]
-    fidx = torch.zeros(n + 1, dtype=torch.int64, device=dev).index_add_(
+    fidx = torch.zeros(n + 1, dtype=torch.int64, device=dev).index_add(
         0, fp, torch.where(fresh, iota_m, torch.zeros_like(iota_m)))[:n]
     is_f = ind > 0
     src = torch.clamp(torch.arange(n, device=dev) - torch.cumsum(ind, 0),

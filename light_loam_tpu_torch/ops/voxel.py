@@ -12,7 +12,7 @@ minor``, whose order is the lexicographic order of the pair, and the
 per-ring downsample folds the ring id into the same key so every ring
 shares one sort.
 
-Segment sums use ``index_add_``.  On CUDA it adds with atomics, so the
+Segment sums use ``index_add``.  On CUDA it adds with atomics, so the
 order of the float additions inside a voxel, and with it the last bit of a
 centroid, can change from run to run; on the CPU it adds in index order,
 like the JAX package's scatter-add.
@@ -93,12 +93,12 @@ def voxel_downsample(
     head, seg = _segments(key_s, valid_s, capacity)
 
     payload = _masked_payload(xyz[order], rel[order], valid_s)
-    acc = xyz.new_zeros((capacity + 1, 5)).index_add_(0, seg, payload)
+    acc = xyz.new_zeros((capacity + 1, 5)).index_add(0, seg, payload)
     if extra_key is not None:
         ex = torch.where(valid_s, extra_key[order].to(torch.int32),
                          torch.zeros((), dtype=torch.int32, device=xyz.device))
         extra_out = torch.zeros(capacity + 1, dtype=torch.int32,
-                                device=xyz.device).scatter_reduce_(
+                                device=xyz.device).scatter_reduce(
             0, seg, ex, "amax", include_self=True)[:capacity]
     else:
         extra_out = torch.zeros(capacity, dtype=torch.int32, device=xyz.device)
@@ -138,13 +138,13 @@ def voxel_downsample_rings(
 
     payload = _masked_payload(xyz.reshape(-1, 3)[order],
                               rel.reshape(-1)[order], valid_s)
-    acc = xyz.new_zeros((R * H + 1, 5)).index_add_(0, seg, payload)
+    acc = xyz.new_zeros((R * H + 1, 5)).index_add(0, seg, payload)
     denom = torch.clamp(acc[:, 4], min=1.0)
     cent = torch.cat([acc[:, :3] / denom[:, None], (acc[:, 3] / denom)[:, None]],
                      dim=1)
 
     # voxels per ring and each ring's first voxel slot
-    n = torch.zeros(R, dtype=torch.int64, device=dev).index_add_(
+    n = torch.zeros(R, dtype=torch.int64, device=dev).index_add(
         0, order // H, head.to(torch.int64))
     first = torch.cumsum(n, 0) - n
     j = torch.arange(C, dtype=torch.int64, device=dev)[None, :]
@@ -171,7 +171,7 @@ def compact_rows(
     pos = torch.cumsum(mask.to(torch.int64), 0) - 1
     tgt = torch.where(mask & (pos < capacity), pos,
                       torch.full_like(pos, capacity))
-    src = torch.zeros(capacity + 1, dtype=torch.int64, device=dev).scatter_(
+    src = torch.zeros(capacity + 1, dtype=torch.int64, device=dev).scatter(
         0, tgt, torch.arange(n, device=dev))[:capacity]
     out_mask = torch.arange(capacity, device=dev) < pos[-1] + 1
     outs = []

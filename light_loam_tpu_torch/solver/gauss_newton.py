@@ -8,7 +8,7 @@ src/laserOdometry.cpp:475-482,819-826, src/laserMapping.cpp:1864-1872,
 each residual block is scaled by sqrt(ρ'(‖r‖²)), ρ the Huber loss, and the
 cost is 0.5 Σ ρ(‖r‖²).  The damped 6×6 system is solved by Cholesky
 (``cholesky_ex``, which reports failure in a tensor instead of raising, so
-the loop never waits on the device).
+the loop never waits on the device) and two triangular solves.
 """
 
 from __future__ import annotations
@@ -123,7 +123,12 @@ def lm_solve(
         H, g, _ = _residuals_all(q, t, factors, huber_delta)
         damped = H + lam * torch.diag(torch.diag(H)) + 1e-9 * eye
         L, info = torch.linalg.cholesky_ex(damped)
-        delta = -torch.cholesky_solve(g[:, None], L)[:, 0]
+        # two triangular solves, not cholesky_solve: under vmap (batched
+        # lanes) the card's cholesky_solve goes to MAGMA, which cannot be
+        # captured in a CUDA graph; cuBLAS's batched trsm can (on the CPU
+        # the two give the same floats)
+        y = torch.linalg.solve_triangular(L, -g[:, None], upper=False)
+        delta = torch.linalg.solve_triangular(L.mT, y, upper=True)[:, 0]
         ok = (info == 0) & torch.isfinite(delta).all()
         delta = torch.where(ok, delta, torch.zeros_like(delta))
         q_new = quat.quat_normalize(quat.quat_multiply(q, quat.quat_exp(delta[:3])))

@@ -37,8 +37,11 @@ staged, two fused and a staged and a fused run of ten flagship frames were
 bitwise equal (PERF.md).  So the graph tests run under that setting and are
 held to 1e-5; one test keeps PyTorch's default sums and the 3 cm band of
 the JAX package's own chunked-against-per-frame test (tests/test_fused.py).
-The test of a failed capture comes last in the file: it leaves a broken
-capture behind it.
+The batched lanes (models/batch.py) launch each kernel once for all lanes
+through the kernels' vmap rules; a lane's result is bit for bit the single
+launch's.  Their graph is held to the eager vmapped body under
+deterministic sums, as the fused frame's is.  The test of a failed capture
+comes last in the file: it leaves a broken capture behind it.
 """
 
 import dataclasses
@@ -54,7 +57,7 @@ from chip_smoke import (
     replay_kernel_counts,
 )
 from light_loam_tpu_torch.core.frame import PointCloud
-from light_loam_tpu_torch.models import fused
+from light_loam_tpu_torch.models import batch, fused
 from light_loam_tpu_torch.models import pipeline as tpl
 from light_loam_tpu_torch.models.mapping import MappingState, mapping_step
 from light_loam_tpu_torch.models.odometry import OdometryState
@@ -683,6 +686,143 @@ def test_mapping_step_recenters_on_card(cuda):
     assert torch.equal(s_gpu.surf.cell.cpu(), s_cpu.surf.cell)
     np.testing.assert_allclose(s_gpu.surf.xyz.cpu().numpy(),
                                s_cpu.surf.xyz.numpy(), rtol=0, atol=1e-3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,Q,N", [(1, 2048, 32768), (3, 2048, 32768),
+                                   (4, 8192, 65536), (2, 300, 5000)])
+def test_knn5_lanes_equal_single_launches(cuda, B, Q, N):
+    """``torch.vmap(knn5)``: one launch for all B lanes, each lane bit for
+    bit its own single launch and within the Gram-form tolerance of the
+    plain version on that lane, with per-lane counts that differ (one
+    lane's queries all dead when B > 2)."""
+    rng = np.random.default_rng(B + Q)
+    ref = rng.uniform(-60, 60, (B, N, 3)).astype(np.float32)
+    query = (ref[:, :Q] + rng.normal(scale=0.3, size=(B, Q, 3))).astype(
+        np.float32)
+    qc = [Q, Q * 5 // 8, 0, Q // 3][:B]
+    rc = [N, N * 3 // 8, N // 2, 17][:B]
+    mask = (rng.random((B, N)) < 0.9) & (np.arange(N)[None] < np.array(
+        rc)[:, None])
+    args = [torch.as_tensor(a).to(cuda) for a in (query, ref, mask)]
+    counts = torch.tensor(np.stack([qc, rc], 1), dtype=torch.int32,
+                          device=cuda)
+    before = KNN5.launches
+    d_b, i_b = torch.vmap(knn5)(*args, counts)
+    torch.cuda.synchronize()
+    assert KNN5.launches == before + 1
+    assert d_b.shape == (B, Q, 5) and i_b.dtype == torch.int32
+    for b in range(B):
+        lane = [a[b] for a in args]
+        d1, i1 = knn5(*lane, counts[b])
+        assert torch.equal(d_b[b], d1) and torch.equal(i_b[b], i1)
+        _check_knn(lane[0], lane[1], d_b[b], i_b[b],
+                   *knn5_plain(*lane, counts[b]))
+    # an unbatched operand is broadcast to every lane
+    d_s, i_s = torch.vmap(knn5, in_dims=(0, None, None, 0))(
+        args[0], args[1][0], args[2][0], counts)
+    for b in range(B):
+        d1, i1 = knn5(args[0][b], args[1][0], args[2][0], counts[b])
+        assert torch.equal(d_s[b], d1) and torch.equal(i_s[b], i1)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,R,K", [(4, 10, 163), (8, 10, 163), (4, 10, 829),
+                                   (3, 5, 158)])
+def test_compat_votes_lanes_equal_single_launches(cuda, B, R, K):
+    """``torch.vmap(compat_votes)``: the (B, R) chunks as one launch of B·R
+    chunks, whose launch geometry may differ from R's; the counts are
+    integers, so each lane equals its own launch exactly, and the plain
+    version on that lane within the votes' tolerance."""
+    rng = np.random.default_rng(B * K)
+    src = rng.uniform(-20, 20, (B, R, K, 3)).astype(np.float32)
+    tgt = src + 0.3 + np.where(rng.random((B, R, K, 1)) < 0.25,
+                               rng.uniform(2, 8, (B, R, K, 3)), 0.0)
+    valid = (rng.random((B, R, K)) < 0.9).astype(np.float32)
+    args = [torch.as_tensor(a.astype(np.float32)).to(cuda)
+            for a in (src, tgt, valid)]
+    before = VOTE.launches
+    v_b = torch.vmap(compat_votes)(*args)
+    torch.cuda.synchronize()
+    assert VOTE.launches == before + 1 and v_b.shape == (B, R, K)
+    for b in range(B):
+        lane = [a[b] for a in args]
+        assert torch.equal(v_b[b], compat_votes(*lane))
+        diff = (v_b[b] - compat_votes_plain(*lane)).abs()
+        assert diff.max().item() <= 1.0
+        assert (diff > 0).float().mean().item() < 0.01
+    v_s = torch.vmap(compat_votes, in_dims=(0, None, None))(
+        args[0], args[1][0], args[2][0])
+    for b in range(B):
+        assert torch.equal(v_s[b], compat_votes(args[0][b], args[1][0],
+                                                args[2][0]))
+
+
+@pytest.mark.cuda
+def test_batched_graph_replay_matches_eager_body(cuda, deterministic_sums):
+    """Three frames of B = 3 lanes through ``batched_frame_step`` (one
+    capture, then one replay per frame, with no host read) and through the
+    eager vmapped body on the same states; the same lanes in reverse order
+    (a lane's result must not depend on its place or its neighbours); a
+    chunk of the three frames through ``batched_chunk_step``.  A replay
+    launches each kernel once per call site for all lanes, and the wrappers
+    count no replay."""
+    cfg = tpl.PROFILES["hdl64-small"]
+    B = 3
+    lanes = [list(tpl.synthetic_frames(3, cfg, 700, 0.6, seed))
+             for seed in range(B)]
+    xs = torch.as_tensor(np.stack([[f[1] for f in lane] for lane in lanes],
+                                  1)).to(cuda)
+    ms = torch.as_tensor(np.stack([[f[2] for f in lane] for lane in lanes],
+                                  1)).to(cuda)
+    graph = fused.frame_graph(cfg, cuda, lanes=B)
+    per_replay = expected_launches(cfg, 1, 1)
+    assert graph.kernel_launches == per_replay
+    assert replay_kernel_counts(graph)[0] == per_replay
+
+    KNN5.launches = VOTE.launches = 0
+    state_g = batch.init_batch_state(cfg, B, cuda)
+    state_e = batch.init_batch_state(cfg, B, cuda)
+    rows = []
+    for x, m in zip(xs, ms):
+        torch.cuda.synchronize()
+        torch.cuda.set_sync_debug_mode("error")
+        try:
+            state_g, out_g, mout_g = batch.batched_frame_step(
+                state_g, x, m, cfg)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        assert KNN5.launches == VOTE.launches == 0
+        state_e, out_e, mout_e = batch._batched_body(state_e, x, m, cfg)
+        for got, want in ((out_g.t_w, out_e.t_w), (out_g.q_w, out_e.q_w),
+                          (mout_g.t_w, mout_e.t_w), (mout_g.q_w, mout_e.q_w),
+                          (state_g.mapping.t_wm, state_e.mapping.t_wm)):
+            assert got.shape[0] == B
+            np.testing.assert_allclose(got.cpu().numpy(), want.cpu().numpy(),
+                                       rtol=0, atol=GRAPH_ATOL)
+        assert (mout_e.map_surf_points > 0).all()
+        assert torch.equal(mout_g.map_surf_points, mout_e.map_surf_points)
+        rows.append(mout_g.t_w.cpu().numpy())
+        KNN5.launches = VOTE.launches = 0
+    assert graph.replays == 3
+    # the lanes saw different worlds
+    assert np.abs(rows[-1][0] - rows[-1][1]).max() > 1e-3
+    state_r = batch.init_batch_state(cfg, B, cuda)
+    for k, (x, m) in enumerate(zip(xs, ms)):
+        state_r, _, mout_r = batch.batched_frame_step(
+            state_r, x.flip(0), m.flip(0), cfg)
+        np.testing.assert_allclose(mout_r.t_w.flip(0).cpu().numpy(), rows[k],
+                                   rtol=0, atol=GRAPH_ATOL)
+
+    fused.frame_graph(cfg, cuda, chunk=3, lanes=B)
+    KNN5.launches = VOTE.launches = 0
+    state_c, (oq, ot, mq, mt) = batch.batched_chunk_step(
+        batch.init_batch_state(cfg, B, cuda), xs, ms, cfg)
+    assert mt.shape == (3, B, 3) and oq.shape == (3, B, 4)
+    np.testing.assert_allclose(mt.cpu().numpy(), np.stack(rows), rtol=0,
+                               atol=GRAPH_ATOL)
+    assert state_c.mapping.frame.tolist() == [3] * B
+    assert KNN5.launches == VOTE.launches == 0
 
 
 @pytest.mark.cuda

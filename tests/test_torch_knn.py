@@ -137,6 +137,58 @@ def test_cpu_tensors_do_not_launch_the_kernel():
     assert KNN5.launches == 0
 
 
+def _lane_inputs(B=3, Q=96, N=700, seed=3):
+    """tests/test_pallas_knn.py::test_vmap_folds_batch_into_grid's lanes,
+    with live-prefix counts that differ per lane (one lane's queries all
+    dead); references past a lane's count are masked, as callers
+    guarantee."""
+    rng = np.random.default_rng(seed)
+    qs = np.stack([_cloud(rng, Q) for _ in range(B)])
+    rs = np.stack([_cloud(rng, N) for _ in range(B)])
+    ms = rng.random((B, N)) > 0.3
+    counts = np.array([[Q, N], [Q * 2 // 3, N // 2], [0, N]], np.int32)[:B]
+    for b, (_, rc) in enumerate(counts):
+        ms[b, rc:] = False
+    return qs, rs, ms, counts
+
+
+@pytest.mark.parametrize("shared_ref", [False, True])
+def test_vmap_folds_lanes_into_one_call(shared_ref):
+    """``torch.vmap`` of the custom op against ``jax.vmap`` of the Pallas
+    kernel in interpret mode (twin of tests/test_pallas_knn.py::
+    test_vmap_folds_batch_into_grid), each lane with its own counts, and
+    lane by lane against the op's single call.  ``shared_ref``: the
+    reference cloud and mask have no lane axis and are broadcast to every
+    lane (in_axes None)."""
+    import jax
+
+    qs, rs, ms, counts = _lane_inputs()
+    if shared_ref:
+        rs, ms = rs[0], ms[0]
+        counts[:, 1] = counts[0, 1]
+    ref_axis = None if shared_ref else 0
+    d_t, i_t = torch.vmap(knn5, in_dims=(0, ref_axis, ref_axis, 0))(
+        *(torch.as_tensor(a) for a in (qs, rs, ms, counts)))
+    d_j, i_j = jax.vmap(
+        lambda q, r, m, c: knn_pallas(q, r, m, k=5, interpret=True,
+                                      query_count=c[0], ref_count=c[1]),
+        in_axes=(0, ref_axis, ref_axis, 0))(
+            *(jnp.asarray(a) for a in (qs, rs, ms, counts)))
+    assert d_t.shape == (3, 96, 5) and i_t.dtype == torch.int32
+    for b, (qc, _) in enumerate(counts):
+        r_b = rs if shared_ref else rs[b]
+        m_b = ms if shared_ref else ms[b]
+        # the port empties every row past the count, the Pallas kernel
+        # only the query blocks it skips (test_count_skip_matches_full_search)
+        _assert_knn_equal(qs[b, :qc], r_b, d_t[b, :qc], i_t[b, :qc],
+                          np.asarray(d_j[b])[:qc], np.asarray(i_j[b])[:qc])
+        d1, i1 = knn5(*(torch.as_tensor(a) for a in (qs[b], r_b, m_b,
+                                                     counts[b])))
+        assert torch.equal(d_t[b], d1) and torch.equal(i_t[b], i1)
+        assert (d_t[b, qc:] > 1e20).all() and (i_t[b, qc:] == 0).all()
+    assert KNN5.launches == 0
+
+
 @pytest.fixture(scope="module")
 def scans():
     world = World.urban(seed=7)

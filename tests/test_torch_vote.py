@@ -96,6 +96,49 @@ def test_cpu_tensors_do_not_launch_the_kernel():
     assert VOTE.launches == 0
 
 
+@pytest.mark.parametrize("in_axes", [(0, 0, 0), (0, None, None)])
+def test_vmap_flattens_lanes_into_one_call(in_axes):
+    """``torch.vmap`` of the custom op against ``jax.vmap`` of the Pallas
+    kernel in interpret mode (twin of tests/test_pallas_vote.py::
+    test_pallas_votes_custom_vmap_flattens_batch), its unbatched-operand
+    case included; lanes with different shares of valid points.  Both are
+    held to float64 truth, lane by lane and chunk by chunk, and the port's
+    lanes equal its per-lane calls."""
+    import jax
+
+    rng = np.random.default_rng(7)
+    B, R, K = 3, 4, 96
+    src = rng.uniform(-20, 20, (B, R, K, 3)).astype(np.float32)
+    tgt = src + rng.uniform(-0.5, 0.5, (B, R, K, 3)).astype(np.float32)
+    share = np.array([0.85, 0.5, 0.2])[:, None, None]
+    valid = (rng.random((B, R, K)) < share).astype(np.float32)
+    thr = float(np.float32(0.96))
+    args = [a if axis == 0 else a[0]
+            for a, axis in zip((src, tgt, valid), in_axes)]
+    got = {
+        "torch": torch.vmap(lambda s, t, v: compat_votes(s, t, v, thr),
+                            in_dims=in_axes)(
+            *(torch.as_tensor(a) for a in args)).numpy(),
+        "pallas": np.asarray(jax.vmap(
+            lambda s, t, v: jpv.compat_votes_pallas(s, t, v, threshold=thr,
+                                                    interpret=True),
+            in_axes=in_axes)(*(jnp.asarray(a) for a in args))),
+    }
+    lane_args = [[a[b] if axis == 0 else a for a, axis in zip(args, in_axes)]
+                 for b in range(B)]
+    for b, (s, t, v) in enumerate(lane_args):
+        single = compat_votes(*(torch.as_tensor(a) for a in (s, t, v)), thr)
+        np.testing.assert_array_equal(got["torch"][b], single.numpy())
+        for r in range(R):
+            want, loose, _ = votes_f64(*(torch.as_tensor(a[r])
+                                         for a in (s, t, v)), thr)
+            for name, votes in got.items():
+                off = np.abs(votes[b, r] - want.numpy())
+                assert (off <= loose.numpy()).all(), (name, b, r, off.max())
+    assert got["torch"].max() > 0
+    assert VOTE.launches == 0
+
+
 def _vote_inputs(n=150, seed=1):
     rng = np.random.default_rng(seed)
     src = rng.uniform(-20, 20, (n, 3)).astype(np.float32)
@@ -220,7 +263,8 @@ def test_full_graph_vote_matches_jax_and_literal(case):
 
 
 @pytest.mark.parametrize("R,K", [(10, 163), (10, 829), (3, 300), (1, 1),
-                                 (2, 7000), (1, 20000)])
+                                 (2, 7000), (1, 20000),
+                                 (40, 163), (80, 163)])  # 4 and 8 lanes
 def test_vote_geometry_covers_every_row_once(R, K):
     """Block b of the flattened grid serves chunk b // row_blocks and, warp
     by warp, rows_per_warp rows each from (b % row_blocks) * 8 *
