@@ -71,7 +71,18 @@ exception and a non-zero exit):
      kernels whatever B is), the busy share of a traced replay and peak
      memory; under deterministic sums each batched step is also held to
      the same lane stepped alone from the same carried state (2 mm for
-     translations, 1e-4 for quaternions).
+     translations, 1e-4 for quaternions);
+ 14. the windowed refinement (models/refine.py, solver/schur.py): 16
+     fused frames fill the keyframe window, then
+     ``refine_recent_keyframes`` at K = 4 and 16 keyframes (512 landmarks,
+     4 iterations): device ms per call split into extract_landmarks,
+     refine_window and schur_solve, device events and the costliest
+     kernels of one call traced through ``StageTimers.profiler_trace``,
+     refined poses within 1e-4 of the same call on the CPU in float64
+     (in float32 rounding decides the landmark fits: reported), two calls
+     bitwise equal under deterministic sums; keyframes corrupted after the
+     fact recovered by apply=True, the next staged and fused frames within
+     1.5 m of the refined pose; the HTML viewer written from the card.
 
 Launch counts: each kernel's wrapper counts its own launches, and every
 staged phase checks them against the counts derived from its config.  A
@@ -110,6 +121,11 @@ from light_loam_tpu_torch.io.kitti import gt_to_lidar_frame, read_gt_poses
 from light_loam_tpu_torch.models import batch, fused, mapping
 from light_loam_tpu_torch.models.mapping import MappingState
 from light_loam_tpu_torch.models.odometry import OdometryState
+from light_loam_tpu_torch.models.refine import (
+    extract_landmarks,
+    normal_equations,
+    refine_window,
+)
 from light_loam_tpu_torch.models.pipeline import (
     PROFILES,
     Pipeline,
@@ -125,10 +141,13 @@ from light_loam_tpu_torch.ops.cuda_vote import (
 from light_loam_tpu_torch.ops.features import extract_features
 from light_loam_tpu_torch.ops.graphvote import full_graph_vote
 from light_loam_tpu_torch.ops.knn import (
+    knn_tiled,
     surf_correspondences,
     surf_correspondences_grid,
 )
 from light_loam_tpu_torch.ops.voxel import compact_rows, voxel_downsample
+from light_loam_tpu_torch.solver.schur import schur_solve
+from light_loam_tpu_torch.utils.html_viewer import export_pipeline_html
 from light_loam_tpu_torch.utils.timing import StageTimers
 
 # Mapped positions (m) of the JAX package's pipeline on the same run, on the
@@ -1437,6 +1456,268 @@ def phase_lanes(kernels, p9) -> dict:
     return dict(runs=runs, graph_launches=graph_launches)
 
 
+# Phase 14: the windowed Schur-complement refinement on a full keyframe
+# window (models/pipeline.py keeps the newest 16)
+REFINE_FRAMES = 16
+REFINE_WINDOWS = (4, 16)
+REFINE_LANDMARKS, REFINE_ITERATIONS = 512, 4
+REFINE_REPS = 5
+# card against the CPU, both in float64: refined t (m) and q, the band of
+# tests/test_refine.py:111-112.  In float32 the two devices' results are up
+# to 3.2 cm apart on these frames (41 of 512 landmark masks flip with the
+# rounding of the ill-conditioned plane fit), and 1.5e-4 from the same
+# landmarks; two calls on the card with atomic sums 8.5e-5 (an H100 80GB
+# HBM3 at 700 W, PERF.md)
+REFINE_CPU_TOL = 1e-4
+# recovery: the twin of tests/test_pipeline_guards.py's apply=True test
+RECOVERY_K, RECOVERY_SHIFT_M, RECOVERY_NEXT_M = 4, 0.12, 1.5
+
+
+def _tree_to(tree, device):
+    return type(tree)(*(_tree_to(x, device) if isinstance(x, tuple)
+                        else x.to(device) for x in tree))
+
+
+def refine_float64(surf, window, device) -> tuple:
+    """``refine_recent_keyframes``' work (extract_landmarks, then
+    refine_window) on ``device`` with every float input promoted to
+    float64: (q, t) as numpy."""
+    def f64(x):
+        return x.to(device, torch.float64 if x.is_floating_point()
+                    else x.dtype)
+
+    lm = extract_landmarks(f64(surf.xyz), f64(surf.mask), REFINE_LANDMARKS)
+    q, t, _ = refine_window(*map(f64, window), lm,
+                            n_iterations=REFINE_ITERATIONS)
+    return q.cpu().numpy(), t.cpu().numpy()
+
+
+def _pose_gap(a, b) -> float:
+    return max(float(np.abs(a[0] - b[0]).max()),
+               float(np.abs(a[1] - b[1]).max()))
+
+
+def refine_trace(pipe, call) -> tuple:
+    """One ``call`` traced through ``StageTimers.profiler_trace`` into a
+    temporary directory: (device events, bytes written, the three events
+    that take the most device time as (name, ms, count))."""
+    with tempfile.TemporaryDirectory() as tmp:
+        with pipe.timers.profiler_trace(tmp) as prof:
+            call()
+            torch.cuda.synchronize()
+        size = sum(os.path.getsize(os.path.join(d, f))
+                   for d, _, files in os.walk(tmp) for f in files)
+    n = sum(e.device_type == torch.autograd.DeviceType.CUDA
+            for e in prof.events())
+    averages = sorted((e for e in prof.key_averages()
+                       if e.device_type == torch.autograd.DeviceType.CUDA),
+                      key=lambda e: e.self_device_time_total, reverse=True)
+    top = [(e.key, e.self_device_time_total / 1e3, e.count)
+           for e in averages[:3]]
+    return n, size, top
+
+
+def phase_refine(kernels) -> dict:
+    """Phase 14: 16 fused flagship frames fill the keyframe window; then
+    ``refine_recent_keyframes`` at K = 4 and 16 (apply=False) is timed, split
+    into its parts, traced, held to the same call on the CPU and, under
+    deterministic sums, to itself; keyframes corrupted after the fact are
+    recovered with apply=True and the next staged and fused frames continue
+    from the re-anchored pose; the HTML viewer is written.  Every check
+    is made after the phase's line of numbers is printed."""
+    t_phase = time.perf_counter()
+    cfg = dataclasses.replace(PROFILES["hdl64"], fused_step=True)
+    staged_cfg = PROFILES["hdl64"]
+    frames = list(synthetic_frames(REFINE_FRAMES + 2, cfg, n_azimuth=1800,
+                                   speed=1.0, seed=0))
+    failures = []
+    graph = fused.frame_graph(cfg, "cuda")
+    replays = graph.replays
+    pipe = Pipeline(cfg, device="cuda")
+    for k in kernels:
+        k.launches = 0
+    for _, xyz, mask in frames[:REFINE_FRAMES]:
+        pipe.process_frame(xyz, mask)
+    positions = pipe.mapped_positions()
+    launches = {k.source.name: k.launches for k in kernels}
+    replays = graph.replays - replays
+    graph_launches = {n: c * replays for n, c in graph.kernel_launches.items()}
+    if any(launches.values()) or replays != REFINE_FRAMES:
+        failures.append(f"fused frames: wrappers counted {launches}, "
+                        f"{replays} replays")
+    if len(pipe._keyframes) != REFINE_FRAMES:
+        failures.append(f"{len(pipe._keyframes)} keyframes buffered")
+    jax_gap = float(np.linalg.norm(positions[:N_FRAMES] - JAX_MAPPED_POSITIONS,
+                                   axis=1).max())
+    if not np.isfinite(positions).all() or jax_gap > POSITION_TOL_M:
+        failures.append(f"mapped positions {jax_gap:.4f} m from the JAX "
+                        "package's")
+
+    surf = pipe.map_state.surf
+    cpu = Pipeline(staged_cfg, device="cpu")
+    cpu.map_state = _tree_to(pipe.map_state, "cpu")
+    cpu._keyframes = list(pipe._keyframes)
+    parts = []
+    for K in REFINE_WINDOWS:
+        def call(K=K):
+            return pipe.refine_recent_keyframes(
+                n_keyframes=K, n_landmarks=REFINE_LANDMARKS,
+                n_iterations=REFINE_ITERATIONS)
+
+        torch.cuda.reset_peak_memory_stats()
+        out = call()
+        peak = torch.cuda.max_memory_allocated() / 2**20
+        call_ms = _median_ms(call, REFINE_REPS)
+        qs, ts, stacks, masks = pipe._window(K)
+        lm = extract_landmarks(surf.xyz, surf.mask, REFINE_LANDMARKS)
+        lm_ms = _median_ms(lambda: extract_landmarks(
+            surf.xyz, surf.mask, REFINE_LANDMARKS), REFINE_REPS)
+        win_ms = _median_ms(lambda: refine_window(
+            qs, ts, stacks, masks, lm, n_iterations=REFINE_ITERATIONS),
+            REFINE_REPS)
+        blocks, _ = normal_equations(qs, ts, stacks, masks, lm, lm.n, lm.d,
+                                     0.1, 2.0, 1.0)
+        schur_ms = _median_ms(lambda: schur_solve(*blocks, damping=1e-4),
+                              REFINE_REPS)
+        n_events, trace_bytes, top = refine_trace(pipe, call)
+        # the card against the CPU from the same map and keyframes.  In
+        # float32 the landmark fit and the association gates are decided by
+        # rounding (PERF.md), so the call is held to the CPU in float64,
+        # where rounding decides nothing, and its float32 gaps are reported
+        gap64 = _pose_gap(refine_float64(surf, pipe._window(K), "cuda"),
+                          refine_float64(surf, pipe._window(K), "cpu"))
+        cpu_gap = _pose_gap(cpu.refine_recent_keyframes(
+            n_keyframes=K, n_landmarks=REFINE_LANDMARKS,
+            n_iterations=REFINE_ITERATIONS), out)
+        lm_cpu = extract_landmarks(surf.xyz.cpu(), surf.mask.cpu(),
+                                   REFINE_LANDMARKS)
+        mask_flips = int((lm_cpu.mask != lm.mask.cpu()).sum())
+        q_w, t_w, _ = refine_window(qs, ts, stacks, masks, lm,
+                                    n_iterations=REFINE_ITERATIONS)
+        q_c, t_c, _ = refine_window(*(x.cpu() for x in (qs, ts, stacks,
+                                                         masks)),
+                                    _tree_to(lm, "cpu"),
+                                    n_iterations=REFINE_ITERATIONS)
+        window_gap = _pose_gap((q_w.cpu().numpy(), t_w.cpu().numpy()),
+                               (q_c.numpy(), t_c.numpy()))
+        if gap64 > REFINE_CPU_TOL:
+            failures.append(f"K = {K}: card against CPU in float64 "
+                            f"{gap64:.3e} > {REFINE_CPU_TOL}")
+        parts.append(
+            f"K = {K}: {call_ms:.3f} ms per call (extract_landmarks "
+            f"{lm_ms:.3f}, refine_window {win_ms:.3f}, of it schur_solve "
+            f"{schur_ms:.3f} x {REFINE_ITERATIONS}), {int(lm.mask.sum())} "
+            f"landmarks, peak memory {peak:.0f} MiB, {n_events} device events "
+            f"in a traced call ({trace_bytes / 2**20:.2f} MiB trace), most "
+            "device time in " + ", ".join(
+                f"{name[:40]} {ms:.3f} ms x{n}" for name, ms, n in top)
+            + f", |card - CPU| float64 {gap64:.3e} (limit {REFINE_CPU_TOL:g}); "
+            f"float32 {cpu_gap:.3e} ({mask_flips} landmark masks differ), "
+            f"{window_gap:.3e} from the card's landmarks")
+
+    # the landmark fit's 5-NN (knn_tiled, torch ops) against the mapping
+    # kernel at the same shape: all anchors against the whole surf store
+    anchors = extract_landmarks(surf.xyz, surf.mask, REFINE_LANDMARKS).anchor
+    counts = torch.tensor([anchors.shape[0], surf.xyz.shape[0]],
+                          dtype=torch.int32, device=anchors.device)
+    tiled_ms = _median_ms(lambda: knn_tiled(anchors, surf.xyz, surf.mask, 5,
+                                            tile=4096), REFINE_REPS)
+    knn5_ms = _median_ms(lambda: knn5(anchors, surf.xyz, surf.mask, counts),
+                         REFINE_REPS)
+    d_t, _ = knn_tiled(anchors, surf.xyz, surf.mask, 5, tile=4096)
+    d_k, _ = knn5(anchors, surf.xyz, surf.mask, counts)
+    live = d_t < 1e20
+    knn_gap = float((d_t - d_k)[live].abs().max()) if live.any() else 0.0
+    parts.append(f"landmark 5-NN, {anchors.shape[0]} anchors x "
+                 f"{surf.xyz.shape[0]} map points: knn_tiled {tiled_ms:.3f} "
+                 f"ms, knn5 {knn5_ms:.3f} ms per call (max |d| gap "
+                 f"{knn_gap:.2e} m^2)")
+
+    # repeatability: two calls on the same inputs
+    call16 = functools.partial(pipe.refine_recent_keyframes,
+                               n_keyframes=REFINE_WINDOWS[-1],
+                               n_landmarks=REFINE_LANDMARKS,
+                               n_iterations=REFINE_ITERATIONS)
+    atomic_gap = _pose_gap(call16(), call16())
+    with deterministic_sums():
+        a, b = call16(), call16()
+    bitwise = all(np.array_equal(x, y) for x, y in zip(a, b))
+    if not bitwise:
+        failures.append(f"deterministic sums: two calls differ by "
+                        f"{_pose_gap(a, b):.3e}")
+
+    # recovery, then the next staged and fused frames
+    clean = pipe.mapped_positions().copy()
+    rng = np.random.default_rng(0)
+    base = len(pipe._keyframes) - (RECOVERY_K - 1)
+    rows = []
+    for i in range(RECOVERY_K - 1):
+        kf = pipe._keyframes[base + i]
+        t_bad = (kf[1] + rng.uniform(-RECOVERY_SHIFT_M, RECOVERY_SHIFT_M,
+                                     3)).astype(np.float32)
+        pipe._keyframes[base + i] = (kf[0], t_bad, *kf[2:])
+        pipe._map_trajectory[kf[4]] = t_bad
+        rows.append(kf[4])
+    corrupt = pipe.mapped_positions().copy()
+    _, t_ref = pipe.refine_recent_keyframes(
+        n_keyframes=RECOVERY_K, n_landmarks=REFINE_LANDMARKS,
+        n_iterations=REFINE_ITERATIONS, apply=True)
+    refined = pipe.mapped_positions()
+    err_c = np.abs(corrupt[rows] - clean[rows]).mean(axis=0)
+    err_r = np.abs(refined[rows] - clean[rows]).mean(axis=0)
+    if not (err_r.sum() < 0.8 * err_c.sum() and err_r[2] < 0.2 * err_c[2]
+            and (err_r[:2] < err_c[:2] * 1.3 + 0.01).all()):
+        failures.append(f"recovery: error {err_r} after, {err_c} before")
+    graph = fused.frame_graph(cfg, "cuda")
+    replays = graph.replays
+    for k in kernels:
+        k.launches = 0
+    pipe.cfg = staged_cfg
+    staged = pipe.process_frame(*frames[REFINE_FRAMES][1:])
+    next_staged = float(np.linalg.norm(staged.map_t - t_ref[-1]))
+    pipe.cfg = cfg
+    step_launches = {k.source.name: k.launches for k in kernels}
+    if step_launches != expected_launches(staged_cfg, 1, 1):
+        failures.append(f"staged frame launched {step_launches}")
+    # a fused frame straight after an apply: the graph must take the
+    # re-anchored state, not replay its own buffers' stale correction
+    _, t_ref = pipe.refine_recent_keyframes(
+        n_keyframes=RECOVERY_K, n_landmarks=REFINE_LANDMARKS,
+        n_iterations=REFINE_ITERATIONS, apply=True)
+    fused_r = pipe.process_frame(*frames[REFINE_FRAMES + 1][1:])
+    next_fused = float(np.linalg.norm(fused_r.map_t - t_ref[-1]))
+    for r, gap in ((staged, next_staged), (fused_r, next_fused)):
+        if not (r.mapped and np.isfinite(r.map_t).all()
+                and gap < RECOVERY_NEXT_M):
+            failures.append(f"frame {r.frame} after apply=True: {r.map_t}, "
+                            f"{gap:.4f} m from the refined pose")
+    if graph.replays - replays != 1:
+        failures.append("the fused frame after apply=True was not one replay")
+    for name in launches:
+        launches[name] += step_launches[name]
+        graph_launches[name] += graph.kernel_launches[name]
+
+    with tempfile.TemporaryDirectory() as tmp:
+        html = os.path.getsize(export_pipeline_html(
+            pipe, os.path.join(tmp, "view.html")))
+    print("[14 refine] " + " | ".join(parts)
+          + f" | {REFINE_WINDOWS[-1]} keyframes, two calls: atomic sums "
+          f"{atomic_gap:.3e} apart, deterministic sums bitwise equal "
+          f"{bitwise} | recovery (K = {RECOVERY_K}, {RECOVERY_K - 1} "
+          f"keyframes shifted up to {RECOVERY_SHIFT_M} m): mean |error| per "
+          f"axis {np.round(err_c, 5).tolist()} -> {np.round(err_r, 5).tolist()}"
+          f" m; next staged frame {next_staged:.4f} m and fused frame "
+          f"{next_fused:.4f} m from the refined pose (limit "
+          f"{RECOVERY_NEXT_M} m) | {REFINE_FRAMES} fused frames, max |mapped "
+          f"- jax| {jax_gap:.4f} m over the first {N_FRAMES} | viewer "
+          f"{html} bytes | launches counted by the wrappers {launches}, "
+          f"through graph replays {graph_launches} | phase "
+          f"{time.perf_counter() - t_phase:.1f} s")
+    if failures:
+        raise AssertionError("phase 14: " + "; ".join(failures))
+    return dict(launches=launches, graph_launches=graph_launches)
+
+
 def main() -> int:
     smi = phase_device()
     dev = torch.device("cuda", 0)
@@ -1469,7 +1750,8 @@ def main() -> int:
         p11 = phase_checkpoint(kernels, p5)
         p12 = phase_repeatable(kernels, p5, p9)
     p13 = phase_lanes(kernels, p9)
-    runs = (p5, p6, p7, p8, p9) + p12
+    p14 = phase_refine(kernels)
+    runs = (p5, p6, p7, p8, p9, p14) + p12
     launches = {name: sum(p["launches"][name] for p in runs) + p11[name]
                 for name in p5["launches"]}
     graph_launches = {name: sum(p["graph_launches"][name] for p in runs)

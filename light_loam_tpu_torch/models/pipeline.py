@@ -12,6 +12,8 @@ mapping step is dispatched only when the previous one has retired (a CUDA
 event recorded after the step has completed), otherwise the frame is
 dropped for mapping while odometry goes on.  With ``sync_mapping`` (the
 default) every step retires before its frame returns.
+``refine_recent_keyframes`` re-estimates the newest buffered keyframes
+jointly against plane landmarks of the map (models/refine.py).
 """
 
 from __future__ import annotations
@@ -45,6 +47,7 @@ from light_loam_tpu_torch.models.odometry import (
     check_odometry_config,
     odometry_step,
 )
+from light_loam_tpu_torch.models.refine import extract_landmarks, refine_window
 from light_loam_tpu_torch.ops.features import check_scan_config, extract_features
 from light_loam_tpu_torch.ops.voxel import voxel_downsample
 from light_loam_tpu_torch.utils.timing import StageTimers
@@ -270,6 +273,73 @@ class Pipeline:
         self.timers.frame_done()
         return result
 
+    # -- windowed refinement (models/refine.py) -------------------------
+    def _window(self, n_keyframes: int):
+        """The newest ``n_keyframes`` buffered keyframes on the pipeline's
+        device: (q (K, 4), t (K, 3), stack_xyz (K, P, 3), stack_mask (K,
+        P))."""
+        kfs = self._keyframes[-n_keyframes:]
+        return tuple(torch.as_tensor(np.stack([k[i] for k in kfs])).to(
+            self.device) for i in range(4))
+
+    def refine_recent_keyframes(
+        self, n_keyframes: int = 4,
+        n_landmarks: int = 512, n_iterations: int = 4,
+        apply: bool = False,
+    ):
+        """Jointly re-refine the most recent keyframe poses against plane
+        landmarks extracted from the map (the Schur-complement window — a
+        capability beyond the reference's frame-at-a-time back end).
+
+        Returns (q (K,4), t (K,3)) refined poses for the stored window as
+        numpy, or None if fewer than 2 keyframes are buffered.  A keyframe
+        is buffered for every RETIRED mapping step, carrying that step's
+        mapped pose, odometry pose and surf stack (all of the same frame,
+        in async/drop regimes too).  Everything runs on the pipeline's
+        device; the refined poses are read back once, at the end.
+
+        ``apply=True`` integrates the result: the stored keyframes and the
+        mapped trajectory rows they came from are rewritten with the
+        refined poses, and the odom→map correction (q_wm, t_wm — the
+        transformUpdate state, laserMapping.cpp:119-123) is re-anchored on
+        the newest refined pose, so the next frame, staged or fused,
+        continues from it.
+        """
+        if len(self._keyframes) < 2:
+            return None
+        self._retire_mapping(wait=True)
+        qs, ts, stacks, masks = self._window(n_keyframes)
+        K = qs.shape[0]
+        lm = extract_landmarks(self.map_state.surf.xyz,
+                               self.map_state.surf.mask, n_landmarks)
+        q_dev, t_dev, _ = refine_window(qs, ts, stacks, masks, lm,
+                                        n_iterations=n_iterations)
+        q, t = q_dev.cpu().numpy(), t_dev.cpu().numpy()
+
+        if apply:
+            base = len(self._keyframes) - K
+            for i in range(K):
+                kf = self._keyframes[base + i]
+                self._keyframes[base + i] = (q[i], t[i], *kf[2:])
+                idx = kf[4]
+                if idx is not None and 0 <= idx < len(self._map_trajectory):
+                    self._map_trajectory[idx] = t[i].copy()
+                    self._map_quats[idx] = q[i].copy()
+            self._last_map_pose = (q[-1].copy(), t[-1].copy())
+            # re-anchor the odom→map correction on the refined newest pose,
+            # paired with the odometry pose OF THAT SAME FRAME (stored with
+            # the keyframe; _last_odo_pose can be a later frame's in
+            # async/drop regimes, which would fold the intervening motion
+            # into the correction)
+            newest = self._keyframes[-1]
+            q_odo = torch.as_tensor(newest[5]).to(self.device)
+            t_odo = torch.as_tensor(newest[6]).to(self.device)
+            q_wm = quat.quat_normalize(
+                quat.quat_multiply(q_dev[-1], quat.quat_inverse(q_odo)))
+            t_wm = t_dev[-1] - quat.quat_rotate(q_wm, t_odo)
+            self.map_state = self.map_state._replace(q_wm=q_wm, t_wm=t_wm)
+        return q, t
+
     def _keyframe_stack(self, stack_points: int = 2048):
         """(stack_xyz, stack_mask) of the surf cloud a mapping step is about
         to consume — captured at dispatch, buffered at retirement."""
@@ -403,6 +473,20 @@ def synthetic_frames(
         yield (pos, *pad_cloud(pts, cfg.scan.max_points))
 
 
+def _live_viz(pipe, prefix: Optional[str], every: int, frame_idx: int,
+              gt=None):
+    """Refresh the PNG/HTML dashboard in place every ``every`` frames —
+    the live-view analog of the reference's rviz window (keep the HTML
+    open in a browser and reload).  Waits for in-flight mapping and copies
+    the map stores to the host, so it trades throughput for
+    observability; gate it with ``every``."""
+    if not prefix or not every or (frame_idx + 1) % every:
+        return
+    from light_loam_tpu_torch.utils import viz
+
+    viz.render_pipeline(pipe, prefix, gt=gt)
+
+
 def run_synthetic(
     n_frames: int = 20,
     profile: str = "hdl64",
@@ -411,6 +495,8 @@ def run_synthetic(
     seed: int = 0,
     fused: bool = False,
     device: str = "cuda",
+    viz_prefix: Optional[str] = None,
+    viz_every: int = 0,
 ):
     """Drive the pipeline over a simulated straight run; returns
     (pipeline, results, true positions)."""
@@ -420,10 +506,11 @@ def run_synthetic(
     pipe = Pipeline(cfg, device=device)
     results = []
     truth = []
-    for pos, xyz, mask in synthetic_frames(n_frames, cfg, n_azimuth, speed,
-                                           seed):
+    for i, (pos, xyz, mask) in enumerate(
+            synthetic_frames(n_frames, cfg, n_azimuth, speed, seed)):
         results.append(pipe.process_frame(xyz, mask))
         truth.append(pos)
+        _live_viz(pipe, viz_prefix, viz_every, i, gt=np.asarray(truth))
     pipe._retire_mapping(wait=True)
     return pipe, results, np.asarray(truth)
 
@@ -442,6 +529,8 @@ def run_kitti(
     fused: bool = False,
     chunk_size: int = 0,
     device: str = "cuda",
+    viz_prefix: Optional[str] = None,
+    viz_every: int = 0,
 ):
     """KITTI sequence → trajectory file (the reference's RESULT_PATH
     artifact, laserMapping.cpp:2284-2326).
@@ -492,11 +581,12 @@ def run_kitti(
         return outs
 
     pipe = Pipeline(cfg, device=device)
-    for xyz, mask in frame_stream():
+    for i, (xyz, mask) in enumerate(frame_stream()):
         res = pipe.process_frame(xyz, mask)
         if pose_source == "high_freq":
             q, t = pipe.high_freq_pose(res.odom_q, res.odom_t)
             writer.write(_rotation_matrix(q), t)
+        _live_viz(pipe, viz_prefix, viz_every, i)
     pipe._retire_mapping(wait=True)
     if pose_source == "mapped":
         for q, t in zip(*pipe.mapped_trajectory()):
@@ -514,6 +604,16 @@ def main(argv=None):
     ap.add_argument("--frames", type=int, default=None)
     ap.add_argument("--synthetic", action="store_true",
                     help="run on the synthetic world instead of KITTI data")
+    ap.add_argument("--viz", metavar="PREFIX", default=None,
+                    help="write PNG quick-looks (PREFIX_traj.png, "
+                         "PREFIX_map.png) and PREFIX_view.html after the "
+                         "run — the headless stand-in for the reference's "
+                         "rviz launch (needs matplotlib)")
+    ap.add_argument("--viz-every", type=int, default=0, metavar="N",
+                    help="with --viz: ALSO refresh the dashboard in "
+                         "place every N frames (live view — keep "
+                         "PREFIX_view.html open and reload; waits for "
+                         "in-flight mapping each refresh)")
     ap.add_argument("--fused", action="store_true",
                     help="latency mode: run each frame as ONE device "
                          "program (models/fused.py; on a card, one CUDA "
@@ -524,8 +624,13 @@ def main(argv=None):
                          "sequence replay; every frame maps")
     ap.add_argument("--device", default="cuda", choices=("cuda", "cpu"))
     args = ap.parse_args(argv)
+    if args.viz:
+        from light_loam_tpu_torch.utils import viz
+
+        viz._require_agg()  # fail before the run, not after it
 
     t0 = time.time()
+    gt = None
     if args.synthetic or not args.dataset:
         n = args.frames or 20
         if args.chunk > 1:
@@ -549,13 +654,16 @@ def main(argv=None):
             return
         pipe, results, truth = run_synthetic(
             n_frames=n, profile=args.profile, fused=args.fused,
-            device=args.device)
+            device=args.device, viz_prefix=args.viz,
+            viz_every=args.viz_every)
+        gt = truth
         err = np.linalg.norm(results[-1].odom_t - truth[-1])
         print(f"frames: {len(results)}  final pose error: {err:.3f} m")
     else:
         out = run_kitti(args.dataset, args.sequence, args.result,
                         args.profile, args.frames, fused=args.fused,
-                        chunk_size=args.chunk, device=args.device)
+                        chunk_size=args.chunk, device=args.device,
+                        viz_prefix=args.viz, viz_every=args.viz_every)
         print(f"trajectory written to {args.result}")
         if args.chunk > 1:
             print(f"wall: {time.time() - t0:.2f}s  (chunked replay, "
@@ -565,6 +673,9 @@ def main(argv=None):
     print(f"wall: {time.time() - t0:.2f}s  dropped mapping frames: "
           f"{pipe.dropped_mapping_frames}")
     print(pipe.timers.report())
+    if args.viz:
+        out = viz.render_pipeline(pipe, args.viz, gt=gt)
+        print("viz:", " ".join(sorted(out.values())))
 
 
 if __name__ == "__main__":

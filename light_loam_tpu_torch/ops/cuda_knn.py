@@ -38,7 +38,7 @@ from typing import NamedTuple, Tuple
 import torch
 
 from light_loam_tpu_torch.ops.cuda_build import CudaKernel
-from light_loam_tpu_torch.ops.knn import BIG, pairwise_sq_dist
+from light_loam_tpu_torch.ops.knn import BIG, knn_tiled
 
 K = 5
 
@@ -85,23 +85,9 @@ def segment_length(rc: int, segments: int) -> int:
     return -(-rc // segments)
 
 
-def _select_k(d: torch.Tensor, idx: torch.Tensor, k: int):
-    """k ascending (value, index) pairs per row by k argmin passes; ties go
-    to the first column, like ``lax.top_k`` in the JAX package.  A picked
-    entry becomes +inf, so it is never picked again, even among 1e30s."""
-    d = d.clone()
-    vals, idxs = [], []
-    for _ in range(k):
-        v, j = torch.min(d, dim=1, keepdim=True)
-        vals.append(v)
-        idxs.append(torch.gather(idx, 1, j))
-        d.scatter_(1, j, float("inf"))
-    return torch.cat(vals, 1), torch.cat(idxs, 1)
-
-
 def knn5_plain(query: torch.Tensor, ref: torch.Tensor, mask: torch.Tensor,
                counts: torch.Tensor, tile: int = 4096):
-    """The kernel's plain PyTorch version: ``knn_tiled`` of the JAX package
+    """The kernel's plain PyTorch version: ``ops/knn.py`` ``knn_tiled``
     (streamed over reference tiles, so no (Q, N) block is ever whole) plus
     the counts.  The counts mask rows and columns instead of shortening the
     sweep, which keeps it free of host syncs."""
@@ -109,22 +95,10 @@ def knn5_plain(query: torch.Tensor, ref: torch.Tensor, mask: torch.Tensor,
     dev = query.device
     counts = counts.to(torch.int64)
     live_col = mask & (torch.arange(N, device=dev) < counts[1])
-    best_d = torch.full((Q, K), BIG, device=dev)
-    best_i = torch.zeros((Q, K), dtype=torch.int64, device=dev)
-    big = torch.full((), BIG, device=dev)
-    for sl in range(0, N, tile):
-        chunk = ref[sl:sl + tile]
-        d = torch.where(live_col[None, sl:sl + tile],
-                        pairwise_sq_dist(query, chunk), big)
-        gcol = torch.arange(sl, sl + chunk.shape[0], device=dev).expand(Q, -1)
-        cd, ci = _select_k(d, gcol, K)
-        # running side first: it wins ties, as in knn_tiled's merge
-        best_d, best_i = _select_k(torch.cat([best_d, cd], 1),
-                                   torch.cat([best_i, ci], 1), K)
+    best_d, best_i = knn_tiled(query, ref, live_col, K, tile=tile)
     dead = (torch.arange(Q, device=dev) >= counts[0])[:, None]
-    best_d = torch.where(dead, big, best_d)
-    best_i = torch.where(dead, torch.zeros_like(best_i), best_i)
-    return best_d, best_i.to(torch.int32)
+    return (torch.where(dead, torch.full((), BIG, device=dev), best_d),
+            torch.where(dead, torch.zeros_like(best_i), best_i))
 
 
 def _check(name, t, dtype, shape, device):

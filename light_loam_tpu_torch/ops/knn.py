@@ -18,7 +18,9 @@ All gated by DISTANCE_SQ_THRESHOLD = 25 (laserOdometry.cpp:29).  The
 surf search comes in two forms: ``surf_correspondences_grid`` for the
 ring-slotted less-flat layout (one pass), and the layout-agnostic
 two-pass ``surf_correspondences`` over reference tiles.  The mapping
-stage's 5-NN lives in ``ops/cuda_knn.py`` beside its kernel.
+stage's 5-NN lives in ``ops/cuda_knn.py`` beside its kernel; ``knn_tiled``,
+the general streamed k-NN, serves the windowed refinement's landmark fits
+(models/refine.py).
 """
 
 from __future__ import annotations
@@ -49,6 +51,60 @@ def _masked_min(d: torch.Tensor, mask: torch.Tensor):
     to the first column."""
     dm = torch.where(mask, d, torch.full((), BIG, device=d.device))
     return torch.min(dm, dim=-1)
+
+
+def select_k(d: torch.Tensor, idx: torch.Tensor, k: int):
+    """k ascending (value, index) pairs per row by k argmin passes; ties go
+    to the first column, like ``lax.top_k`` in the JAX package.  A picked
+    entry becomes +inf, so it is never picked again, even among 1e30s."""
+    d = d.clone()
+    vals, idxs = [], []
+    for _ in range(k):
+        v, j = torch.min(d, dim=1, keepdim=True)
+        vals.append(v)
+        idxs.append(torch.gather(idx, 1, j))
+        d.scatter_(1, j, float("inf"))
+    return torch.cat(vals, 1), torch.cat(idxs, 1)
+
+
+def knn_tiled(
+    query_xyz: torch.Tensor,
+    ref_xyz: torch.Tensor,
+    ref_mask: torch.Tensor,
+    k: int,
+    tile: int = 8192,
+    ref_count: Optional[int] = None,
+):
+    """k-NN over a large reference cloud, streamed in ``tile``-row chunks:
+    per chunk the masked distances and their k smallest, merged with the
+    running best.
+
+    Returns (sq_dists (Q, k) ascending, indices (Q, k) int32).  Ties go to
+    the lower index, and in the merge to the running best, as
+    ``lax.top_k`` orders them in the JAX package; a slot with no live
+    reference left keeps the initial (1e30, 0).
+
+    ``ref_count`` (a host int) asserts that every live reference lies in
+    the prefix [0, ref_count); chunks past it are not visited (exact: a
+    masked chunk can never win a slot)."""
+    Q, N = query_xyz.shape[0], ref_xyz.shape[0]
+    dev = query_xyz.device
+    n_tiles = -(-N // tile)
+    if ref_count is not None:
+        n_tiles = min(-(-ref_count // tile), n_tiles)
+    best_d = torch.full((Q, k), BIG, device=dev)
+    best_i = torch.zeros((Q, k), dtype=torch.int64, device=dev)
+    big = torch.full((), BIG, device=dev)
+    for sl in range(0, n_tiles * tile, tile):
+        chunk = ref_xyz[sl:sl + tile]
+        d = torch.where(ref_mask[None, sl:sl + tile],
+                        pairwise_sq_dist(query_xyz, chunk), big)
+        cols = torch.arange(sl, sl + chunk.shape[0], device=dev).expand(Q, -1)
+        cd, ci = select_k(d, cols, k)
+        # running best first: it wins ties
+        best_d, best_i = select_k(torch.cat([best_d, cd], 1),
+                                  torch.cat([best_i, ci], 1), k)
+    return best_d, best_i.to(torch.int32)
 
 
 class CornerMatches(NamedTuple):

@@ -9,7 +9,9 @@ mean/max, budget overrun counting and a one-line report.
 CUDA work is asynchronous, so the host clock around a stage measures what
 the host spent queueing it.  With ``device=True`` each stage also records
 a pair of CUDA events on the current stream; ``device_report()`` waits
-for them and returns the device time of each stage.
+for them and returns the device time of each stage.  ``profiler_trace``
+is the deep dive: a ``torch.profiler`` trace of a region, written to a
+directory.
 """
 
 from __future__ import annotations
@@ -87,6 +89,26 @@ class StageTimers:
                 start.elapsed_time(end))
         self._pending.clear()
         return self.device_stages
+
+    @contextmanager
+    def profiler_trace(self, log_dir: str):
+        """Trace a region with ``torch.profiler`` (host ops, and the CUDA
+        kernels when the timers are on the card) and write it into
+        ``log_dir`` as ``<host>_<pid>.<time>.pt.trace.json`` (viewable in
+        TensorBoard or Perfetto).  Yields the profiler, so the caller can
+        read ``events()`` and ``key_averages()`` after the region."""
+        from torch.profiler import (
+            ProfilerActivity,
+            profile,
+            tensorboard_trace_handler,
+        )
+
+        activities = [ProfilerActivity.CPU]
+        if self.device:
+            activities.append(ProfilerActivity.CUDA)
+        with profile(activities=activities,
+                     on_trace_ready=tensorboard_trace_handler(log_dir)) as prof:
+            yield prof
 
     def reset(self) -> None:
         """Forget every recorded time (e.g. after warm-up frames)."""

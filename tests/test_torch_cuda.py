@@ -825,6 +825,89 @@ def test_batched_graph_replay_matches_eager_body(cuda, deterministic_sums):
     assert KNN5.launches == VOTE.launches == 0
 
 
+# the windowed refinement (models/refine.py): the card against the CPU, in
+# float64, at the 1e-4 of tests/test_refine.py:111-112
+REFINE_TOL = 1e-4
+REFINE_ARGS = dict(n_keyframes=4, n_landmarks=256, n_iterations=4)
+
+
+def _refine_run(cuda, cfg, n_frames=6):
+    run = dict(n_frames=n_frames, n_azimuth=700, speed=0.6, seed=2)
+    pipe, res = _run_synthetic(cfg, run, "cuda")
+    frames = list(tpl.synthetic_frames(n_frames + 1, cfg, 700, 0.6, 2))
+    return pipe, frames[-1][1:]
+
+
+@pytest.mark.cuda
+def test_refine_on_card_matches_cpu(cuda):
+    """The refinement's work on the card and on the CPU from the same map
+    and keyframes, in float64: refined poses within 1e-4.  (In float32 the
+    landmark fit is decided by rounding, so the two devices pick other
+    landmarks: chip_smoke.py phase 14 reports that gap.)"""
+    from chip_smoke import refine_float64
+
+    pipe, _ = _refine_run(cuda, tpl.PROFILES["hdl64-small"])
+    for K in (2, 4):
+        window = pipe._window(K)
+        card = refine_float64(pipe.map_state.surf, window, cuda)
+        cpu = refine_float64(pipe.map_state.surf, window, "cpu")
+        for a, b in zip(card, cpu):
+            np.testing.assert_allclose(a, b, rtol=0, atol=REFINE_TOL)
+        # and the float32 call runs on the card: finite, near its window
+        q, t = pipe.refine_recent_keyframes(**dict(REFINE_ARGS,
+                                                   n_keyframes=K))
+        assert np.isfinite(q).all() and np.isfinite(t).all()
+        assert np.abs(t - window[1].cpu().numpy()).max() < 1.0
+
+
+@pytest.mark.cuda
+def test_refine_bitwise_repeatable_under_deterministic_sums(
+        cuda, deterministic_sums):
+    pipe, _ = _refine_run(cuda, tpl.PROFILES["hdl64-small"], n_frames=5)
+    a = pipe.refine_recent_keyframes(**REFINE_ARGS)
+    b = pipe.refine_recent_keyframes(**REFINE_ARGS)
+    for x, y in zip(a, b):
+        np.testing.assert_array_equal(x, y)
+
+
+@pytest.mark.cuda
+def test_fused_frame_after_refine_apply_uses_the_refined_pose(
+        cuda, deterministic_sums):
+    """After apply=True the next fused frame copies the re-anchored state
+    into its graph's buffers: it equals a staged step from the same state
+    (1e-5), not a replay of the graph's stale odom→map correction."""
+    base = tpl.PROFILES["hdl64-small"]
+    cfg = dataclasses.replace(base, fused_step=True)
+    pipe, nxt = _refine_run(cuda, cfg, n_frames=5)
+    before = pipe.map_state.t_wm.clone()
+    kf = pipe._keyframes[-2]
+    pipe._keyframes[-2] = (kf[0], kf[1] + np.float32(0.1), *kf[2:])
+    pipe.refine_recent_keyframes(**REFINE_ARGS, apply=True)
+    assert float((pipe.map_state.t_wm - before).abs().max()) > 1e-6
+    staged = tpl.Pipeline(base, device="cuda")
+    staged.odo_state = _to(_to(pipe.odo_state, "cpu"), cuda)
+    staged.map_state = _to(_to(pipe.map_state, "cpu"), cuda)
+    staged.frame = pipe.frame
+    graph = fused.frame_graph(cfg, cuda)
+    replays = graph.replays
+    r_f = pipe.process_frame(*nxt)
+    r_s = staged.process_frame(*nxt)
+    assert graph.replays == replays + 1
+    np.testing.assert_allclose(r_f.map_t, r_s.map_t, rtol=0, atol=GRAPH_ATOL)
+    np.testing.assert_allclose(r_f.odom_t, r_s.odom_t, rtol=0,
+                               atol=GRAPH_ATOL)
+
+
+@pytest.mark.cuda
+def test_refine_profiler_trace_records_kernels(cuda, tmp_path):
+    pipe, _ = _refine_run(cuda, tpl.PROFILES["hdl64-small"], n_frames=3)
+    with pipe.timers.profiler_trace(str(tmp_path)) as prof:
+        pipe.refine_recent_keyframes(**REFINE_ARGS)
+    assert list(tmp_path.glob("*.pt.trace.json"))
+    assert any(e.device_type == torch.autograd.DeviceType.CUDA
+               for e in prof.events())
+
+
 @pytest.mark.cuda
 def test_failed_capture_raises(cuda, monkeypatch):
     """A body that reads to the host passes its eager warm-up and breaks

@@ -63,9 +63,9 @@ def test_cli_runs_on_cpu(capsys):
     assert "frames: 1" in out and "final pose error" in out
 
 
-def test_cli_needs_synthetic_input(capsys):
+def test_cli_needs_synthetic_input(capsys, tmp_path):
     """Without --dataset the CLI runs the synthetic world, as the JAX
-    package's does; --fused and --chunk apply there too."""
+    package's does; --fused, --chunk and --viz apply there too."""
     small = ["--profile", "hdl64-small", "--device", "cpu"]
     tpl.main(["--frames", "1", *small])
     out = capsys.readouterr().out
@@ -76,8 +76,11 @@ def test_cli_needs_synthetic_input(capsys):
     tpl.main(["--frames", "2", "--chunk", "2", *small])
     assert "frames: 2 (chunk=2)  final mapped pose error" in (
         capsys.readouterr().out)
-    with pytest.raises(SystemExit):
-        tpl.main(["--viz", "prefix", *small])  # not ported: no such flag
+    prefix = str(tmp_path / "dash")
+    tpl.main(["--frames", "1", "--viz", prefix, *small])
+    assert f"viz: {prefix}_map.png" in capsys.readouterr().out
+    for name in ("_map.png", "_traj.png", "_view.html"):
+        assert (tmp_path / f"dash{name}").stat().st_size > 0
 
 
 def test_cli_cuda_without_a_card_raises(monkeypatch):

@@ -20,7 +20,11 @@ def test_port_files_found():
             "light_loam_tpu_torch/io/evaluation.py",
             "light_loam_tpu_torch/core/pose.py",
             "light_loam_tpu_torch/utils/checkpoint.py",
-            "light_loam_tpu_torch/utils/export.py"} <= names
+            "light_loam_tpu_torch/utils/export.py",
+            "light_loam_tpu_torch/solver/schur.py",
+            "light_loam_tpu_torch/models/refine.py",
+            "light_loam_tpu_torch/utils/viz.py",
+            "light_loam_tpu_torch/utils/html_viewer.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
