@@ -1,6 +1,7 @@
-"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+"""Smoke run of the PyTorch/CUDA port on NVIDIA GPUs: one card, and every
+card of the host for phase 15's ranks (up to four).
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--only-sharded]
 
 Builds the port's CUDA kernels from ``light_loam_tpu_torch/csrc`` and runs,
 in order (each phase prints one line of numbers; any failure is an uncaught
@@ -82,7 +83,26 @@ exception and a non-zero exit):
      (in float32 rounding decides the landmark fits: reported), two calls
      bitwise equal under deterministic sums; keyframes corrupted after the
      fact recovered by apply=True, the next staged and fused frames within
-     1.5 m of the refined pose; the HTML viewer written from the card.
+     1.5 m of the refined pose; the HTML viewer written from the card;
+ 15. the multi-device paths (light_loam_tpu_torch/parallel/), each rank a
+     process spawned after phase 2 that loads phase 2's libraries: NCCL at
+     world 1 on cuda:0, then 4 (or 2) ranks on as many cards over NCCL, or
+     on one card, where NCCL refuses a second rank, 2 gloo ranks both on
+     cuda:0 (said so, with the card count, the backend, n and ``nvidia-smi
+     topo -m``'s links).  Each run: phase 5's 12 frames, one sharded step
+     from each single-device state (recorded from a staged run) against
+     that state's single-device step (2 cm, the JAX test's factor and map
+     bounds, every rank's pose bitwise equal), the 12 frames from an empty
+     map against the JAX package's sharded run at the same n (5 cm), the
+     same per step with phase 6's map vote (compat_votes on every rank),
+     4 lanes per rank of phase 13's frames through the lane-sharded batched
+     step against the same lanes unsharded (3 cm), phase 14's window split
+     over the ranks in float64 against the single call (1e-9), and on
+     every rank one knn5 and one compat_votes call at the rank's shapes
+     against their plain versions; ms per sharded step, collectives per
+     step and their bytes, aggregate lane frames/s, each rank's peak
+     memory and launches.  ``--only-sharded`` runs phases 1, 2 and 15
+     alone, phase 15 making its own references.
 
 Launch counts: each kernel's wrapper counts its own launches, and every
 staged phase checks them against the counts derived from its config.  A
@@ -92,7 +112,10 @@ capture, which a traced replay confirms kernel by kernel.
 
 The last three lines are a JSON object with each kernel's numbers
 (``launches`` from the wrappers over the staged phases, ``graph_launches``
-through replays), the card's name and power limit, and ``{"ok": true, "device": {...}}``.
+through replays, ``lane_launches`` through phase 13's, ``sharded_launches``
+from phase 15's ranks' wrappers and ``sharded_lane_launches`` through their
+lane replays), the card's name and power limit, and ``{"ok": true, "device":
+{...}}``.
 Without a CUDA device, or without the ``light_loam_tpu_torch`` package
 beside it, the script fails before printing any result.  It imports
 nothing of JAX.
@@ -114,14 +137,17 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from light_loam_tpu_torch.core.frame import PointCloud
 from light_loam_tpu_torch.io.evaluation import ate_rmse
 from light_loam_tpu_torch.io.kitti import gt_to_lidar_frame, read_gt_poses
 from light_loam_tpu_torch.models import batch, fused, mapping
+from light_loam_tpu_torch.models import pipeline as pipeline_module
 from light_loam_tpu_torch.models.mapping import MappingState
 from light_loam_tpu_torch.models.odometry import OdometryState
 from light_loam_tpu_torch.models.refine import (
+    PlaneLandmarks,
     extract_landmarks,
     normal_equations,
     refine_window,
@@ -138,6 +164,7 @@ from light_loam_tpu_torch.ops.cuda_vote import (
     compat_votes,
     compat_votes_plain,
 )
+from light_loam_tpu_torch.ops import graphvote
 from light_loam_tpu_torch.ops.features import extract_features
 from light_loam_tpu_torch.ops.graphvote import full_graph_vote
 from light_loam_tpu_torch.ops.knn import (
@@ -146,6 +173,18 @@ from light_loam_tpu_torch.ops.knn import (
     surf_correspondences_grid,
 )
 from light_loam_tpu_torch.ops.voxel import compact_rows, voxel_downsample
+from light_loam_tpu_torch.parallel.batch_sharded import (
+    gather_lanes,
+    init_sharded_batch_state,
+    put_frames,
+    sharded_batched_frame_step,
+)
+from light_loam_tpu_torch.parallel.sharded import (
+    make_group,
+    refine_hooks,
+    shard_mapping_state,
+    sharded_mapping_step,
+)
 from light_loam_tpu_torch.solver.schur import schur_solve
 from light_loam_tpu_torch.utils.html_viewer import export_pipeline_html
 from light_loam_tpu_torch.utils.timing import StageTimers
@@ -1453,7 +1492,8 @@ def phase_lanes(kernels, p9) -> dict:
           f"{d_run['stream_ms']:.2f} ms | fused single lanes: |lane 0 - jax| "
           f"{jax_gap * 1e3:.4f} mm | launches through graph replays "
           f"{graph_launches}, none counted by the wrappers")
-    return dict(runs=runs, graph_launches=graph_launches)
+    return dict(runs=runs, graph_launches=graph_launches, xyz=xyz,
+                mask=mask)
 
 
 # Phase 14: the windowed Schur-complement refinement on a full keyframe
@@ -1715,14 +1755,581 @@ def phase_refine(kernels) -> dict:
           f"{time.perf_counter() - t_phase:.1f} s")
     if failures:
         raise AssertionError("phase 14: " + "; ".join(failures))
-    return dict(launches=launches, graph_launches=graph_launches)
+    return dict(launches=launches, graph_launches=graph_launches, pipe=pipe)
 
 
-def main() -> int:
+# Phase 15: the multi-device paths (light_loam_tpu_torch/parallel/), each
+# rank a process spawned after phase 2 with one card, loading the libraries
+# phase 2 built.  Phase 5's 12 frames, phase 6's vote over 10, phase 13's
+# lanes (4 per rank) and phase 14's 16-keyframe window.
+SHARD_FRAMES = N_FRAMES
+SHARD_LANES_PER_RANK = 4
+# one sharded step from the single-device state against the single-device
+# step: tests/test_sharded.py's bounds (t_w in m; surf factors within
+# max(5, 3 %), map surf points within max(10, 2 %))
+SHARD_STEP_TOL_M = 2e-2
+# the sharded refinement in float64 against the single call on cuda:0 (the
+# float32 landmark fit is decided by rounding; phase 14)
+SHARD_REFINE_TOL = 1e-9
+SHARD_TIMEOUT_S = 600
+# Mapped positions (m) of the JAX package's sharded_mapping_step on a mesh of
+# n virtual CPU devices, mapping the JAX pipeline's own mapping inputs of the
+# 12 flagship frames from an empty map, produced by:
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/jax_sharded_positions.py
+JAX_SHARDED_POSITIONS = {
+    1: np.array([
+        [0.0, 0.0, 0.0],
+        [0.9995206594467163, 0.02170042134821415, 0.0015200147172436118],
+        [2.003796100616455, 0.04250028356909752, 0.001778800506144762],
+        [3.0113422870635986, 0.06793145835399628, 0.0038703822065144777],
+        [4.018343448638916, 0.08942994475364685, 0.002571233082562685],
+        [5.003924369812012, 0.11174213141202927, 0.003016623668372631],
+        [6.017598628997803, 0.12591886520385742, 0.003155415179207921],
+        [7.022066116333008, 0.143201544880867, 0.0037113570142537355],
+        [8.00963306427002, 0.16212058067321777, 0.00319398520514369],
+        [9.005278587341309, 0.18893280625343323, 0.006241403520107269],
+        [10.001440048217773, 0.2046716958284378, 0.005014450289309025],
+        [11.005671501159668, 0.23489657044410706, 0.006110792513936758],
+    ]),
+    2: np.array([
+        [0.0, 0.0, 0.0],
+        [0.9995206594467163, 0.021700426936149597, 0.0015200148336589336],
+        [2.0043203830718994, 0.042197033762931824, 0.0016247539315372705],
+        [3.0100831985473633, 0.0681348368525505, 0.0019999428186565638],
+        [4.012101173400879, 0.08930271118879318, 0.0005446510622277856],
+        [4.9991350173950195, 0.11169404536485672, 0.0036999848671257496],
+        [6.013247013092041, 0.1269041895866394, 0.004337724298238754],
+        [7.017674922943115, 0.14698010683059692, 0.004580153152346611],
+        [8.005496978759766, 0.16499021649360657, 0.003932006191462278],
+        [9.000838279724121, 0.19011178612709045, 0.0071573881432414055],
+        [9.996777534484863, 0.21143494546413422, 0.004815253429114819],
+        [10.999781608581543, 0.2377360463142395, 0.0047035603784024715],
+    ]),
+    4: np.array([
+        [0.0, 0.0, 0.0],
+        [0.9995206594467163, 0.021700430661439896, 0.0015200143679976463],
+        [2.003887176513672, 0.042131587862968445, 0.001659236615523696],
+        [3.0094821453094482, 0.06597725301980972, 0.0016376589192077518],
+        [4.0143303871154785, 0.08888303488492966, 0.00134658208116889],
+        [4.999653339385986, 0.11178642511367798, 0.0036574387922883034],
+        [6.012421607971191, 0.12917128205299377, 0.003141168737784028],
+        [7.016554832458496, 0.1440865844488144, 0.0038172707427293062],
+        [8.004632949829102, 0.16305240988731384, 0.0033194769639521837],
+        [9.00131893157959, 0.18916703760623932, 0.005360455252230167],
+        [9.99581241607666, 0.20671941339969635, 0.005731390789151192],
+        [11.001856803894043, 0.23486120998859406, 0.004893721546977758],
+    ]),
+}
+
+
+def shard_runs(cards: int) -> list:
+    """(backend, n, device of each rank): NCCL at world 1 always; then 4 or
+    2 ranks on as many cards over NCCL, or, on one card, where NCCL refuses
+    a second rank, 2 gloo ranks both on cuda:0."""
+    runs = [("nccl", 1, ("cuda:0",))]
+    if cards >= 2:
+        n = 4 if cards >= 4 else 2
+        runs.append(("nccl", n, tuple(f"cuda:{i}" for i in range(n))))
+    else:
+        runs.append(("gloo", 2, ("cuda:0", "cuda:0")))
+    return runs
+
+
+def topo_links(devices) -> str:
+    """``nvidia-smi topo -m``'s link between each pair of the cards used."""
+    proc = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True, timeout=60)
+    lines = proc.stdout.splitlines()
+    if proc.returncode != 0 or not lines:
+        return (f"not available (exit {proc.returncode}: "
+                f"{(proc.stderr or proc.stdout).strip()[:200]})")
+    header = [h.strip() for h in lines[0].split("\t")]
+    rows = {line.split("\t")[0].strip(): [c.strip() for c in line.split("\t")]
+            for line in lines[1:] if line.startswith("GPU")}
+    used = sorted({torch.device(d).index for d in devices})
+    if len(used) == 1:
+        return f"GPU{used[0]} alone ({' '.join(rows.get(f'GPU{used[0]}', [])[:2])})"
+    return ", ".join(
+        f"GPU{a}-GPU{b} {rows[f'GPU{a}'][header.index(f'GPU{b}')]}"
+        for i, a in enumerate(used) for b in used[i + 1:])
+
+
+def _to_npz(out: dict, prefix: str, tree) -> None:
+    """Tensors of nested NamedTuples into ``out`` under dotted names."""
+    if isinstance(tree, torch.Tensor):
+        out[prefix] = tree.detach().cpu().numpy()
+        return
+    for name, x in tree._asdict().items():
+        _to_npz(out, f"{prefix}.{name}", x)
+
+
+def _from_npz(z, prefix: str, like, device):
+    """The inverse of ``_to_npz``, shaped like ``like``, on ``device``."""
+    if isinstance(like, torch.Tensor):
+        return torch.from_numpy(z[prefix]).to(device)
+    return type(like)(*(_from_npz(z, f"{prefix}.{name}", x, device)
+                        for name, x in like._asdict().items()))
+
+
+def record_mapping_inputs(frames, device="cuda") -> tuple:
+    """The staged flagship run over ``frames`` with every ``mapping_step``
+    call recorded: ([(state before, corner_last, surf_last, q_odom, t_odom,
+    output)], the pipeline)."""
+    cfg = PROFILES["hdl64"]
+    calls = []
+    real = pipeline_module.mapping_step
+
+    def record(state, corner, surf, q_odom, t_odom, mcfg):
+        new_state, out = real(state, corner, surf, q_odom, t_odom, mcfg)
+        calls.append((state, corner, surf, q_odom, t_odom, out))
+        return new_state, out
+
+    pipeline_module.mapping_step = record
+    try:
+        pipe = Pipeline(cfg, device=device)
+        for i, (_, xyz, mask) in enumerate(frames):
+            pipe.process_frame(xyz, mask)
+            if i == 0:  # steady state: later frames only
+                torch.cuda.synchronize()
+                pipe.timers.reset()
+        torch.cuda.synchronize()
+    finally:
+        pipeline_module.mapping_step = real
+    if len(calls) != len(frames):
+        raise AssertionError(f"{len(calls)} of {len(frames)} frames mapped")
+    return calls, pipe
+
+
+def _mapping_refs(out: dict, prefix: str, states, outs) -> None:
+    for k, (state, mout) in enumerate(zip(states, outs)):
+        _to_npz(out, f"{prefix}{k}.state", state)
+        _to_npz(out, f"{prefix}{k}.out", mout)
+
+
+def shard_inputs(path, calls, lane_xyz, lane_mask, lane_refs, window,
+                 landmarks, refined) -> None:
+    """Everything the ranks need, in one ``.npz``: the odometry's mapping
+    inputs of each frame, the single-device states and outputs (the map
+    vote's too), the lanes and their unsharded positions, and the float64
+    refinement window, landmarks and single-call result."""
+    out = {}
+    for k, (_, corner, surf, q_odom, t_odom, _) in enumerate(calls):
+        _to_npz(out, f"in{k}.corner", corner)
+        _to_npz(out, f"in{k}.surf", surf)
+        out[f"in{k}.q"] = q_odom.cpu().numpy()
+        out[f"in{k}.t"] = t_odom.cpu().numpy()
+    _mapping_refs(out, "base", [c[0] for c in calls], [c[5] for c in calls])
+    vcfg = mapping_vote_config().mapping
+    state = MappingState.init(vcfg, calls[0][4].device)
+    states, outs = [], []
+    for _, corner, surf, q_odom, t_odom, _ in calls[:VOTE_N_FRAMES]:
+        states.append(state)
+        state, mout = mapping.mapping_step(state, corner, surf, q_odom,
+                                           t_odom, vcfg)
+        outs.append(mout)
+    _mapping_refs(out, "vote", states, outs)
+    out["lanes.xyz"], out["lanes.mask"] = lane_xyz, lane_mask
+    for B, positions in lane_refs.items():
+        out[f"lanes.ref{B}"] = positions
+    for name, x in zip(("q", "t", "stacks", "masks"), window):
+        out[f"window.{name}"] = x.cpu().numpy()
+    _to_npz(out, "landmarks", landmarks)
+    out["window.q_ref"], out["window.t_ref"] = refined
+    np.savez(path, **out)
+
+
+class _LastCall:
+    """Wraps a module attribute and keeps the arguments of its last call."""
+
+    def __init__(self, module, name):
+        self.module, self.name = module, name
+        self.real = getattr(module, name)
+        self.args = None
+        setattr(module, name, self)
+
+    def __call__(self, *args):
+        self.args = args
+        return self.real(*args)
+
+    def restore(self):
+        setattr(self.module, self.name, self.real)
+
+
+def _timed(fn):
+    """(fn's result, its stream ms from CUDA events)."""
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
+def _sharded_steps(group, z, cfg, prefix, n_frames, inputs, failures,
+                   free=False) -> dict:
+    """``n_frames`` sharded steps: each from the resharded single-device
+    state ``prefix``k (held to that state's single-device step), or, with
+    ``free``, from an empty map; the rank-0 positions, ms per step, the
+    largest gaps and the collectives of one step."""
+    like = MappingState.init(cfg)
+    empty = MappingState.init(cfg, group.device)
+    state = shard_mapping_state(empty, group, cfg) if free else None
+    ms, positions, gaps, poses_equal = [], [], [0.0, 0, 0], True
+    overflow = [0, 0]
+    for k in range(n_frames):
+        if not free:
+            state = shard_mapping_state(
+                _from_npz(z, f"{prefix}{k}.state", like, group.device),
+                group, cfg)
+        before = (group.collectives, group.bytes)
+        (state, out), step_ms = _timed(lambda: sharded_mapping_step(
+            state, *inputs[k], cfg, group))
+        per_step = (group.collectives - before[0], group.bytes - before[1])
+        ms.append(step_ms)
+        pose = torch.cat([out.q_w, out.t_w])
+        all_poses = group.all_gather(pose[None])
+        poses_equal &= bool((all_poses == pose).all())
+        positions.append(out.t_w.cpu().numpy())
+        overflow = [max(overflow[0], int(out.local_overflow)),
+                    max(overflow[1], int(out.stack_overflow))]
+        if free:
+            continue
+        t_ref = z[f"{prefix}{k}.out.t_w"]
+        gap = float(np.linalg.norm(positions[-1] - t_ref))
+        sf, sf_ref = int(out.surf_factors), int(z[f"{prefix}{k}.out.surf_factors"])
+        mp, mp_ref = (int(out.map_surf_points),
+                      int(z[f"{prefix}{k}.out.map_surf_points"]))
+        gaps = [max(gaps[0], gap), max(gaps[1], abs(sf - sf_ref)),
+                max(gaps[2], abs(mp - mp_ref))]
+        if (gap > SHARD_STEP_TOL_M or abs(sf - sf_ref) > max(5, 0.03 * sf_ref)
+                or abs(mp - mp_ref) > max(10, 0.02 * mp_ref)):
+            failures.append(f"{prefix} frame {k}: t_w {gap:.4f} m, surf "
+                            f"factors {sf} vs {sf_ref}, map surf points {mp} "
+                            f"vs {mp_ref}")
+    if not poses_equal:
+        failures.append(f"{prefix}: the ranks' poses differ")
+    return dict(ms=ms, positions=np.stack(positions).tolist(), gaps=gaps,
+                collectives=per_step[0], bytes=per_step[1],
+                overflow=overflow)
+
+
+def _rank_lanes(group, z, failures) -> dict:
+    """This rank's B/n lanes of phase 13's frames through the lane-sharded
+    batched step (one graph replay per batched frame on its card); every
+    lane within 3 cm of the same lane unsharded; host wall per frame."""
+    cfg = dataclasses.replace(PROFILES["hdl64"], fused_step=True)
+    B = SHARD_LANES_PER_RANK * group.size
+    xyz, mask = z["lanes.xyz"][:, :B], z["lanes.mask"][:, :B]
+    K = xyz.shape[0]
+    state = init_sharded_batch_state(cfg, B, group)
+    graph = fused.frame_graph(cfg, group.device, lanes=B // group.size)
+    replays = graph.replays
+    rows = []
+    for i in range(K):
+        if i == 1:
+            group.all_reduce(torch.ones(1, device=group.device))
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+        dx, dm = put_frames(xyz[i], mask[i], group)
+        state, _, mout = sharded_batched_frame_step(state, dx, dm, cfg)
+        rows.append(mout.t_w)
+    torch.cuda.synchronize()
+    wall_ms = (time.perf_counter() - t1) * 1e3 / (K - 1)
+    positions = gather_lanes(torch.stack(rows, 1), group).cpu().numpy()
+    gap = float(np.linalg.norm(positions - z[f"lanes.ref{B}"], axis=-1).max())
+    if not np.isfinite(positions).all() or gap > SAME_CARD_TOL_M:
+        failures.append(f"lanes: {gap:.4f} m from the unsharded lanes")
+    replays = graph.replays - replays
+    return dict(B=B, wall_ms=wall_ms, gap=gap, capture_s=graph.capture_seconds,
+                launches={name: c * replays
+                          for name, c in graph.kernel_launches.items()})
+
+
+def _rank_refine(group, z, failures) -> dict:
+    """Phase 14's window in float64, its keyframes split over the ranks
+    through ``refine_hooks``, against the single call on cuda:0."""
+    dev = group.device
+    window = [torch.from_numpy(z[f"window.{name}"]).to(dev)
+              for name in ("q", "t", "stacks", "masks")]
+    k = window[0].shape[0] // group.size
+    local = [x[group.rank * k:(group.rank + 1) * k] for x in window]
+    lm = _from_npz(z, "landmarks",
+                   PlaneLandmarks(*(torch.zeros(1) for _ in range(4))), dev)
+    q, t, _ = refine_window(*local, lm, n_iterations=REFINE_ITERATIONS,
+                            **refine_hooks(group, k))
+    gap = max(float(np.abs(group.all_gather(q).cpu().numpy()
+                           - z["window.q_ref"]).max()),
+              float(np.abs(group.all_gather(t).cpu().numpy()
+                           - z["window.t_ref"]).max()))
+    if not gap <= SHARD_REFINE_TOL:
+        failures.append(f"refinement: {gap:.3e} from the single call")
+    return dict(keyframes=k, gap=gap)
+
+
+def _rank_kernels(knn_call, vote_call, failures) -> dict:
+    """One knn5 and one compat_votes call of this rank's runs, at the shapes
+    the rank gave them, held to their plain versions as phases 3-4 do."""
+    query, ref, mask, counts = knn_call
+    d_k, i_k = knn5(query, ref, mask, counts)
+    d_p, i_p = knn5_plain(query, ref, mask, counts)
+    knn_err, swaps = _check_knn(query, ref, d_k, i_k, d_p, i_p)
+    v_k = compat_votes(*vote_call)
+    diff = (v_k - compat_votes_plain(*vote_call)).abs()
+    frac = (diff > 0).float().mean().item()
+    if diff.max().item() > VOTE_MAX_DIFF or frac >= VOTE_MAX_FRAC:
+        failures.append(f"compat_votes: max diff {diff.max().item()}, "
+                        f"differing fraction {frac}")
+    qc, rc = (int(c) for c in counts.cpu())
+    return dict(knn_shape=[query.shape[0], ref.shape[0], qc, rc],
+                knn_err=knn_err, knn_swaps=swaps,
+                vote_shape=list(vote_call[0].shape[:2]),
+                vote_err=diff.max().item())
+
+
+def shard_rank(rank, backend, n, devices, init_method, npz_path, out_dir):
+    """One rank of phase 15 (spawned): its group, the sharded mapping steps,
+    the free run and the vote run, its lanes, its keyframes of the
+    refinement and one call of each kernel; writes its numbers and any
+    failed check to ``out_dir``."""
+    for k in (KNN5, VOTE):
+        if not k.library_path().exists():
+            raise RuntimeError(f"rank {rank}: {k.source.name} was not built "
+                               "by phase 2")
+    group = make_group(n, rank, backend, init_method, device=devices[rank])
+    try:
+        z = np.load(npz_path)
+        dev = group.device
+        cfg, vcfg = PROFILES["hdl64"].mapping, mapping_vote_config().mapping
+        cloud = PointCloud.zeros(1)
+        inputs = [(_from_npz(z, f"in{k}.corner", cloud, dev),
+                   _from_npz(z, f"in{k}.surf", cloud, dev),
+                   torch.from_numpy(z[f"in{k}.q"]).to(dev),
+                   torch.from_numpy(z[f"in{k}.t"]).to(dev))
+                  for k in range(SHARD_FRAMES)]
+        failures = []
+        torch.cuda.reset_peak_memory_stats(dev)
+        # the lanes first: their graph is captured before the group has run
+        # any collective
+        lanes = _rank_lanes(group, z, failures)
+        knn_call = _LastCall(mapping, "knn5")
+        vote_call = _LastCall(graphvote, "compat_votes")
+        try:
+            for k in (KNN5, VOTE):
+                k.launches = 0
+            steps = _sharded_steps(group, z, cfg, "base", SHARD_FRAMES,
+                                   inputs, failures)
+            free = _sharded_steps(group, z, cfg, "free", SHARD_FRAMES, inputs,
+                                  failures, free=True)
+            vote = _sharded_steps(group, z, vcfg, "vote", VOTE_N_FRAMES,
+                                  inputs, failures)
+            launches = {k.source.name: k.launches for k in (KNN5, VOTE)}
+        finally:
+            knn_call.restore()
+            vote_call.restore()
+        want = {"knn.cu": 2 * cfg.outer_iterations
+                * (2 * SHARD_FRAMES + VOTE_N_FRAMES),
+                "vote.cu": vcfg.outer_iterations * VOTE_N_FRAMES}
+        if launches != want:
+            failures.append(f"launches {launches}, expected {want}")
+        refine = _rank_refine(group, z, failures)
+        kernels = _rank_kernels(knn_call.args, vote_call.args, failures)
+        result = dict(rank=rank, device=str(dev), steps=steps, free=free,
+                      vote=vote, lanes=lanes, refine=refine, kernels=kernels,
+                      launches=launches, failures=failures,
+                      peak_mib=torch.cuda.max_memory_allocated(dev) / 2**20)
+        with open(os.path.join(out_dir, f"{backend}-{n}-rank{rank}.json"),
+                  "w") as f:
+            json.dump(result, f)
+    finally:
+        dist.destroy_process_group()
+
+
+def spawn_ranks(backend, n, devices, npz_path, out_dir) -> list:
+    """Phase 15's ranks: ``n`` spawned processes, one card each; a rank that
+    fails fails the phase, and one still running after SHARD_TIMEOUT_S is
+    killed and fails it.  Returns each rank's numbers in rank order."""
+    init_method = f"file://{out_dir}/rdzv-{backend}-{n}"
+    ctx = torch.multiprocessing.start_processes(
+        shard_rank, args=(backend, n, devices, init_method, npz_path, out_dir),
+        nprocs=n, join=False, start_method="spawn")
+    deadline = time.monotonic() + SHARD_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
+            if time.monotonic() >= deadline:
+                raise TimeoutError(f"phase 15: {backend} ranks still running "
+                                   f"after {SHARD_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    results = []
+    for r in range(n):
+        with open(os.path.join(out_dir, f"{backend}-{n}-rank{r}.json")) as f:
+            results.append(json.load(f))
+    return results
+
+
+def phase_sharded(kernels, p5=None, p13=None, p14=None) -> dict:
+    """Phase 15: the multi-device paths on the card(s), run by spawned ranks
+    (``shard_rank``) from the single-device references made here: phase
+    5's frames staged with every mapping call recorded, the map vote's
+    single-device run over them, the lanes' unsharded runs (phase 13's
+    where it ran the same B) and phase 14's window refined in float64.
+    Returns the launches the ranks counted (wrappers) and made through
+    their lane graphs' replays."""
+    t_phase = time.perf_counter()
+    cards = torch.cuda.device_count()
+    runs = shard_runs(cards)
+    print(f"[15 sharded] {cards} card(s) visible; runs: " + "; ".join(
+        f"{b} n={n} on {', '.join(devices)}" for b, n, devices in runs)
+        + f" | nvidia-smi topo -m: {topo_links(runs[-1][2])}"
+        + (" | one card: NCCL refuses two ranks on one card, so the second "
+           "run is 2 gloo ranks both on cuda:0 (the exchange runs through "
+           "the host); the exchange across cards was not measured on this "
+           "machine" if cards < 2 else ""))
+
+    frames = list(synthetic_frames(SHARD_FRAMES, PROFILES["hdl64"],
+                                   n_azimuth=1800, speed=1.0, seed=0))
+    calls, rec = record_mapping_inputs(frames)
+    single_ms = rec.timers.device_report()["mapping"].mean_ms
+    fcfg = dataclasses.replace(PROFILES["hdl64"], fused_step=True)
+    max_b = SHARD_LANES_PER_RANK * max(n for _, n, _ in runs)
+    if p13 is not None and p13["xyz"].shape[1] >= max_b:
+        lane_xyz, lane_mask = p13["xyz"][:, :max_b], p13["mask"][:, :max_b]
+    else:
+        lane_xyz, lane_mask = lane_frames(max_b, LANE_FRAMES)
+    done = {r["B"]: r for r in (p13["runs"] if p13 else [])}
+    lane_refs = {}
+    for _, n, _ in runs:
+        B = SHARD_LANES_PER_RANK * n
+        if B not in done:
+            done[B] = batched_run(kernels, fcfg, lane_xyz[:, :B],
+                                  lane_mask[:, :B])
+        lane_refs[B] = done[B]["positions"]
+    if p14 is None:
+        pipe = Pipeline(fcfg, device="cuda")
+        for _, xyz, mask in synthetic_frames(REFINE_FRAMES, fcfg,
+                                             n_azimuth=1800, speed=1.0,
+                                             seed=0):
+            pipe.process_frame(xyz, mask)
+    else:
+        pipe = p14["pipe"]
+    surf = pipe.map_state.surf
+    window = [x.to(torch.float64) if x.is_floating_point() else x
+              for x in pipe._window(REFINE_FRAMES)]
+    landmarks = extract_landmarks(surf.xyz.double(), surf.mask,
+                                  REFINE_LANDMARKS)
+    q_ref, t_ref, _ = refine_window(*window, landmarks,
+                                    n_iterations=REFINE_ITERATIONS)
+
+    launches = dict.fromkeys(("knn.cu", "vote.cu"), 0)
+    lane_launches = dict.fromkeys(("knn.cu", "vote.cu"), 0)
+    failures = []
+    with tempfile.TemporaryDirectory() as tmp:
+        npz = os.path.join(tmp, "inputs.npz")
+        shard_inputs(npz, calls, lane_xyz, lane_mask, lane_refs, window,
+                     landmarks, (q_ref.cpu().numpy(), t_ref.cpu().numpy()))
+        prep_s = time.perf_counter() - t_phase
+        for backend, n, devices in runs:
+            t_run = time.perf_counter()
+            ranks = spawn_ranks(backend, n, devices, npz, tmp)
+            run_s = time.perf_counter() - t_run
+            r0 = ranks[0]
+            free = np.array(r0["free"]["positions"])
+            jax_gap = float(np.linalg.norm(free - JAX_SHARDED_POSITIONS[n],
+                                           axis=1).max())
+            if not np.isfinite(free).all() or jax_gap > POSITION_TOL_M:
+                failures.append(f"{backend} n={n}: free run {jax_gap:.4f} m "
+                                "from the JAX package's sharded run")
+            for r in ranks:
+                failures += [f"{backend} n={n} rank {r['rank']}: {f}"
+                             for f in r["failures"]]
+                for name in launches:
+                    launches[name] += r["launches"][name]
+                    lane_launches[name] += r["lanes"]["launches"][name]
+            B = r0["lanes"]["B"]
+            lane_fps = B * 1e3 / max(r["lanes"]["wall_ms"] for r in ranks)
+            b4 = done.get(4)
+            st = r0["steps"]
+            print(
+                f"[15 sharded] {backend} n={n} ({run_s:.1f} s) | per step "
+                f"from the single-device state, {SHARD_FRAMES} frames: max "
+                f"|t_w - single| {st['gaps'][0] * 1e3:.4f} mm (limit "
+                f"{SHARD_STEP_TOL_M * 1e3:g}), max |surf factors - single| "
+                f"{st['gaps'][1]}, max |map surf points - single| "
+                f"{st['gaps'][2]}, local_overflow {st['overflow'][0]}, "
+                f"stack_overflow {st['overflow'][1]} | ms per sharded step on "
+                f"rank 0 (CUDA events, median of frames 2-{SHARD_FRAMES}): "
+                f"from a resharded state {statistics.median(st['ms'][1:]):.2f}, "
+                f"free run {statistics.median(r0['free']['ms'][1:]):.2f}, "
+                f"vote {statistics.median(r0['vote']['ms'][1:]):.2f}, against "
+                f"the single-device mapping stage {single_ms:.2f} (staged "
+                f"stream ms, this phase's recording run"
+                + (f"; phase 5: {p5['stages']['mapping']:.2f}" if p5 else "")
+                + f") | collectives per "
+                f"step {st['collectives']} ({st['bytes'] / 2**20:.3f} MiB sent "
+                f"by each rank), vote mode {r0['vote']['collectives']} "
+                f"({r0['vote']['bytes'] / 2**20:.3f} MiB) | free run from an "
+                f"empty map: max |mapped - JAX sharded n={n}| "
+                f"{jax_gap * 1e3:.4f} mm (limit {POSITION_TOL_M * 1e3:g}) | "
+                f"vote mode per step: max |t_w - single| "
+                f"{r0['vote']['gaps'][0] * 1e3:.4f} mm, surf factors "
+                f"{r0['vote']['gaps'][1]} | lanes: B={B} ({B // n} per rank), "
+                f"max |lane - unsharded| {max(r['lanes']['gap'] for r in ranks) * 1e3:.4f} "
+                f"mm, {lane_fps:.2f} frames/s aggregate (host wall, frames "
+                f"2-{LANE_FRAMES})"
+                + (f" against {b4['fps']:.2f} at B=4 on one card (phase 13)"
+                   if b4 else "")
+                + f" | refinement, {REFINE_FRAMES} keyframes "
+                f"({r0['refine']['keyframes']} per rank), float64: max "
+                f"|sharded - single| {max(r['refine']['gap'] for r in ranks):.3e} "
+                f"(limit {SHARD_REFINE_TOL:g}) | kernels on each rank against "
+                "their plain versions: " + ", ".join(
+                    f"rank {r['rank']} knn5 (Q, N, qc, rc) = "
+                    f"{tuple(r['kernels']['knn_shape'])} max_abs_err "
+                    f"{r['kernels']['knn_err']:.3g} tie_swaps "
+                    f"{r['kernels']['knn_swaps']}, compat_votes (R, K) = "
+                    f"{tuple(r['kernels']['vote_shape'])} max_abs_err "
+                    f"{r['kernels']['vote_err']:.3g}" for r in ranks)
+                + " | launches counted by each rank's wrappers "
+                + ", ".join(str(r["launches"]) for r in ranks)
+                + ", through its lane graph's replays "
+                + ", ".join(str(r["lanes"]["launches"]) for r in ranks)
+                + " | peak memory per rank "
+                + ", ".join(f"{r['peak_mib']:.0f}" for r in ranks) + " MiB")
+    print(f"[15 sharded] phase {time.perf_counter() - t_phase:.1f} s "
+          f"(references and inputs {prep_s:.1f} s)")
+    if failures:
+        raise AssertionError("phase 15: " + "; ".join(failures))
+    return dict(launches=launches, lane_launches=lane_launches)
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description="Smoke run of the port on the "
+                                 "card(s): phases 1-15 (module docstring).")
+    ap.add_argument("--only-sharded", action="store_true",
+                    help="phases 1, 2 and 15 only: phase 15 makes its own "
+                    "references (for a run on several cards)")
+    args = ap.parse_args(argv)
     smi = phase_device()
     dev = torch.device("cuda", 0)
     kernels = (KNN5, VOTE)
     phase_build(kernels)
+    if args.only_sharded:
+        p15 = phase_sharded(kernels)
+        print(json.dumps({"kernels": [
+            {"name": name, "sharded_launches": p15["launches"][src],
+             "sharded_lane_launches": p15["lane_launches"][src]}
+            for name, src in (("knn5", "knn.cu"), ("compat_votes", "vote.cu"))
+        ]}))
+        print(smi)
+        print(json.dumps({"ok": True, "device": {
+            "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+            "count": torch.cuda.device_count()}}))
+        return 0
     knn = phase_knn(dev)
     knn_lanes = phase_knn_lanes(dev)
     vote = phase_vote(dev)
@@ -1751,6 +2358,7 @@ def main() -> int:
         p12 = phase_repeatable(kernels, p5, p9)
     p13 = phase_lanes(kernels, p9)
     p14 = phase_refine(kernels)
+    p15 = phase_sharded(kernels, p5, p13, p14)
     runs = (p5, p6, p7, p8, p9, p14) + p12
     launches = {name: sum(p["launches"][name] for p in runs) + p11[name]
                 for name in p5["launches"]}
@@ -1777,6 +2385,8 @@ def main() -> int:
              | {"max_abs_err": v["err"]}
              for (_, case), v in knn.items() if case == "below"],
          "lane_launches": lane_launches["knn.cu"],
+         "sharded_launches": p15["launches"]["knn.cu"],
+         "sharded_lane_launches": p15["lane_launches"]["knn.cu"],
          "lanes": [
              {k: v[k] for k in ("B", "Q", "N", "counts", "max_abs_err",
                                 "tie_swaps", "ms", "plain_ms", "device_ms",
@@ -1799,6 +2409,8 @@ def main() -> int:
               "bound_ms": v["bound_ms"], "bound_by": v["bound_by"]}
              for (R, K), v in vote.items()],
          "lane_launches": lane_launches["vote.cu"],
+         "sharded_launches": p15["launches"]["vote.cu"],
+         "sharded_lane_launches": p15["lane_launches"]["vote.cu"],
          "lanes": [
              {k: v[k] for k in ("B", "R", "K", "max_abs_err", "ms",
                                 "plain_ms", "device_ms", "plain_device_ms",

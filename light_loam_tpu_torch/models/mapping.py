@@ -201,15 +201,19 @@ def _recenter(state: MappingState, t_w: torch.Tensor, cfg: MappingConfig):
 
 
 def _gather_local(store: MapStore, center: torch.Tensor, cfg: MappingConfig,
-                  capacity: int):
+                  capacity: int, cell_ordered: bool = True):
     """Compact the points of the 5×5×3 neighbourhood (ref:1784-1809) into a
     fixed-capacity buffer ordered by cell id.
 
-    Every store here is cell-nondecreasing on its live rows (voxel-key
-    order embeds the cell, and recentering adds one constant to every live
-    cell id), so a stable mask compaction in store order is the sort by
-    cell id.  Returns (xyz, mask, overflow): overflow counts the
-    neighbourhood points that did not fit (whole high-index cells)."""
+    Every single-device store is cell-nondecreasing on its live rows
+    (voxel-key order embeds the cell, and recentering adds one constant to
+    every live cell id), so with ``cell_ordered`` a stable mask compaction
+    in store order is the sort by cell id.  A store in any other layout
+    (the voxel-hash-sharded store of parallel/sharded.py) passes False and
+    pays a stable argsort by cell; its rows past the live count then hold
+    whatever rows the sort put there, as in the JAX package.  Returns
+    (xyz, mask, overflow): overflow counts the neighbourhood points that
+    did not fit (whole high-index cells)."""
     d = (_cell_split(store.cell, cfg) - center[None, :]).abs()
     local = (
         store.mask
@@ -217,9 +221,16 @@ def _gather_local(store: MapStore, center: torch.Tensor, cfg: MappingConfig,
         & (d[:, 1] <= cfg.local_half_j)
         & (d[:, 2] <= cfg.local_half_k)
     )
-    overflow = torch.clamp(local.sum(dtype=torch.int32) - capacity, min=0)
-    out_mask, xyz = compact_rows(local, capacity, store.xyz)
-    return xyz, out_mask, overflow
+    count = local.sum(dtype=torch.int32)
+    overflow = torch.clamp(count - capacity, min=0)
+    if cell_ordered:
+        out_mask, xyz = compact_rows(local, capacity, store.xyz)
+        return xyz, out_mask, overflow
+    key = torch.where(local, store.cell,
+                      torch.full_like(store.cell, torch.iinfo(torch.int32).max))
+    order = torch.argsort(key, stable=True)[:capacity]
+    out_mask = torch.arange(capacity, device=count.device) < count
+    return store.xyz[order], out_mask, overflow
 
 
 def _solve3x3(A: torch.Tensor, b: torch.Tensor):

@@ -26,7 +26,7 @@ from light_loam_tpu_torch.core import quaternion as quat
 from light_loam_tpu_torch.models.mapping import _solve3x3
 from light_loam_tpu_torch.ops.knn import knn_tiled
 from light_loam_tpu_torch.ops.voxel import voxel_downsample
-from light_loam_tpu_torch.solver.gauss_newton import _huber_rho
+from light_loam_tpu_torch.solver.gauss_newton import _huber_rho, _identity
 from light_loam_tpu_torch.solver.schur import schur_solve
 
 
@@ -154,10 +154,6 @@ def normal_equations(q, t, stack_xyz, stack_mask, lm: PlaneLandmarks,
                      Jl.reshape(-1, 3)),
     ).reshape(Kl, M, 6, 3)
     return (Hpp, g_p, Hpl, Hll, g_l), (b1, b2)
-
-
-def _identity(x: torch.Tensor) -> torch.Tensor:
-    return x
 
 
 def refine_window(

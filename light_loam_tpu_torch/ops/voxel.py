@@ -81,12 +81,16 @@ def voxel_downsample(
     leaf: float,
     capacity: int,
     extra_key: Optional[torch.Tensor] = None,
+    with_count: bool = False,
 ):
     """Centroid-downsample a masked cloud.
 
     Returns (xyz_out (capacity, 3), rel_out, mask_out, extra_out) in voxel
     key order; ``extra_out`` carries each voxel's ``extra_key`` (zeros
-    when not supplied).  Voxels beyond ``capacity`` are dropped."""
+    when not supplied).  Voxels beyond ``capacity`` are dropped;
+    ``with_count=True`` adds a fifth return, the number of distinct live
+    voxels before that clip (int32), so that a caller can report the
+    drop."""
     key = voxel_keys(xyz, mask, leaf, extra_key)
     key_s, order = torch.sort(key, stable=True)
     valid_s = mask[order]
@@ -105,8 +109,11 @@ def voxel_downsample(
 
     cnt = acc[:capacity, 4]
     denom = torch.clamp(cnt, min=1.0)
-    return (acc[:capacity, :3] / denom[:, None], acc[:capacity, 3] / denom,
-            cnt > 0, extra_out)
+    out = (acc[:capacity, :3] / denom[:, None], acc[:capacity, 3] / denom,
+           cnt > 0, extra_out)
+    if with_count:
+        return out + (head.sum(dtype=torch.int32),)
+    return out
 
 
 def voxel_downsample_rings(

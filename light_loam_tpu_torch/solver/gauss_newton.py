@@ -9,11 +9,16 @@ each residual block is scaled by sqrt(ρ'(‖r‖²)), ρ the Huber loss, and th
 cost is 0.5 Σ ρ(‖r‖²).  The damped 6×6 system is solved by Cholesky
 (``cholesky_ex``, which reports failure in a tensor instead of raising, so
 the loop never waits on the device) and two triangular solves.
+
+With the factors split across processes (parallel/sharded.py), ``lm_solve``
+takes the sum over all of them as ``allreduce``, the counterpart of the
+JAX package's ``axis_name``: every process then solves the identical 6×6
+system.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional
 
 import torch
 
@@ -94,6 +99,20 @@ def _cost_only(q, t, factors: FactorSet, delta):
     return cost
 
 
+def _identity(x: torch.Tensor) -> torch.Tensor:
+    return x
+
+
+def _reduce(allreduce, *xs: torch.Tensor):
+    """``allreduce`` of each of ``xs``, packed into one call; nothing on
+    one process."""
+    if allreduce is _identity:
+        return xs
+    flat = allreduce(torch.cat([x.reshape(-1) for x in xs]))
+    parts = flat.split([x.numel() for x in xs])
+    return tuple(p.reshape(x.shape) for p, x in zip(parts, xs))
+
+
 def lm_solve(
     q0: torch.Tensor,
     t0: torch.Tensor,
@@ -102,25 +121,30 @@ def lm_solve(
     huber_delta: float = 0.1,
     lambda_init: float = 1e-4,
     min_factors: int = 1,
+    allreduce: Callable[[torch.Tensor], torch.Tensor] = _identity,
 ):
     """Run ``n_iterations`` LM steps from (q0, t0).
 
     Damped normal equations (H + λ·diag(H)) δ = −g; a step is accepted only
     if the robust cost decreases (λ ×1/3 on accept, ×4 on reject).  A
     failed or non-finite solve takes a zero step.  With fewer than
-    ``min_factors`` active factors the pose is returned unchanged."""
+    ``min_factors`` active factors the pose is returned unchanged.
+    ``allreduce`` sums a tensor over the processes that hold the other
+    factors (the factor count, H, g and both costs)."""
     n_active = q0.new_zeros(())
     for f in factors:
         if f is not None:
             n_active = n_active + torch.sum(f.mask.to(torch.float32))
-    solvable = n_active >= min_factors
     eye = torch.eye(6, dtype=q0.dtype, device=q0.device)
 
     q, t = q0, t0
     lam = torch.full((), lambda_init, dtype=q0.dtype, device=q0.device)
     cost = _cost_only(q0, t0, factors, huber_delta)
+    n_active, cost = _reduce(allreduce, n_active, cost)
+    solvable = n_active >= min_factors
     for _ in range(n_iterations):
         H, g, _ = _residuals_all(q, t, factors, huber_delta)
+        H, g = _reduce(allreduce, H, g)
         damped = H + lam * torch.diag(torch.diag(H)) + 1e-9 * eye
         L, info = torch.linalg.cholesky_ex(damped)
         # two triangular solves, not cholesky_solve: under vmap (batched
@@ -133,7 +157,8 @@ def lm_solve(
         delta = torch.where(ok, delta, torch.zeros_like(delta))
         q_new = quat.quat_normalize(quat.quat_multiply(q, quat.quat_exp(delta[:3])))
         t_new = t + delta[3:]
-        new_cost = _cost_only(q_new, t_new, factors, huber_delta)
+        (new_cost,) = _reduce(allreduce,
+                              _cost_only(q_new, t_new, factors, huber_delta))
         accept = (new_cost < cost) & solvable
         q = torch.where(accept, q_new, q)
         t = torch.where(accept, t_new, t)

@@ -928,3 +928,56 @@ def test_failed_capture_raises(cuda, monkeypatch):
         fused.fused_frame_step(*_init_states(cfg, cuda), xyz, mask, cfg)
     assert not fused._GRAPHS
     assert len(calls) <= fused.WARMUP_PASSES + 1
+
+
+@pytest.mark.cuda
+def test_sharded_step_world_one_over_nccl(cuda, tmp_path):
+    """``sharded_mapping_step`` at world 1 over NCCL on the card, one step
+    from each of 4 successive single-device states (tests/test_sharded.py's
+    capacities and clouds): within the JAX test's one-step bounds of
+    ``mapping_step`` from the same state (both add with atomics), every
+    5-NN through the kernel."""
+    import torch.distributed as dist
+    from light_loam_tpu_torch.config import MappingConfig
+    from light_loam_tpu_torch.parallel.sharded import (
+        make_group,
+        shard_mapping_state,
+        sharded_mapping_step,
+    )
+
+    cfg = MappingConfig(
+        map_corner_capacity=8192, map_surf_capacity=16384,
+        local_corner_capacity=8192, local_surf_capacity=16384,
+        stack_corner_capacity=512, stack_surf_capacity=2048, knn_tile=1024)
+    group = make_group(1, 0, "nccl", f"file://{tmp_path}/rdzv", device=cuda)
+    try:
+        world = World.urban(seed=11)
+        rng = np.random.default_rng(0)
+        single = MappingState.init(cfg, cuda)
+        for k in range(4):
+            pts = simulate_scan(world, np.array([0.5 * k, 0.0, 0.0]),
+                                n_azimuth=500, noise=0.005, seed=30 + k)
+            idx = rng.permutation(len(pts))
+
+            def cloud(p, cap):
+                xyz = torch.zeros((cap, 3))
+                xyz[:len(p)] = torch.from_numpy(p)
+                return PointCloud(xyz.to(cuda), torch.zeros(cap, device=cuda),
+                                  (torch.arange(cap) < len(p)).to(cuda))
+
+            c, s = cloud(pts[idx[:400]], 512), cloud(pts[idx[400:2400]], 2048)
+            q = torch.tensor([0.0, 0.0, 0.0, 1.0], device=cuda)
+            t = torch.tensor([0.5 * k + 0.05, 0.05, 0.05], device=cuda)
+            state = shard_mapping_state(single, group, cfg)
+            single, out_s = mapping_step(single, c, s, q, t, cfg)
+            KNN5.launches = 0
+            _, out_m = sharded_mapping_step(state, c, s, q, t, cfg, group)
+            assert KNN5.launches == 2 * cfg.outer_iterations
+            assert float((out_m.t_w - out_s.t_w).norm()) < 2e-2
+            sf, sf_ref = int(out_m.surf_factors), int(out_s.surf_factors)
+            assert abs(sf - sf_ref) <= max(5, 0.03 * sf_ref)
+            mp, mp_ref = int(out_m.map_surf_points), int(out_s.map_surf_points)
+            assert abs(mp - mp_ref) <= max(10, 0.02 * mp_ref)
+        assert sf > 100
+    finally:
+        dist.destroy_process_group()

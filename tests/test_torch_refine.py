@@ -22,8 +22,8 @@ Tolerances:
     percent of flipped plane factors of tests/test_torch_mapping.py), and
     the port no further from the float64 decision than the JAX package;
   * ``refine_window``: poses within 1e-4 (tests/test_refine.py:111-112).
-The sharded twin (``test_refine_sharded_matches_single``) waits for the
-port of ``parallel/``.
+The sharded twin (``test_refine_sharded_matches_single``) is in
+tests/test_torch_sharded.py.
 """
 
 import jax.numpy as jnp

@@ -24,7 +24,11 @@ def test_port_files_found():
             "light_loam_tpu_torch/solver/schur.py",
             "light_loam_tpu_torch/models/refine.py",
             "light_loam_tpu_torch/utils/viz.py",
-            "light_loam_tpu_torch/utils/html_viewer.py"} <= names
+            "light_loam_tpu_torch/utils/html_viewer.py",
+            "light_loam_tpu_torch/parallel/__init__.py",
+            "light_loam_tpu_torch/parallel/sharded.py",
+            "light_loam_tpu_torch/parallel/batch_sharded.py",
+            "light_loam_tpu_torch/parallel/multihost.py"} <= names
 
 
 @pytest.mark.parametrize("path", FILES, ids=lambda p: str(p.relative_to(REPO)))
