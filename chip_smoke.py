@@ -101,8 +101,21 @@ exception and a non-zero exit):
      every rank one knn5 and one compat_votes call at the rank's shapes
      against their plain versions; ms per sharded step, collectives per
      step and their bytes, aggregate lane frames/s, each rank's peak
-     memory and launches.  ``--only-sharded`` runs phases 1, 2 and 15
-     alone, phase 15 making its own references.
+     memory and launches.  Over NCCL every sharded step is one replay of
+     the rank's captured step (``ShardedStepGraph``, collectives inside):
+     warm-up and capture seconds per rank, collectives, MiB and kernel
+     launches counted at capture; a probe captures a bare all-gather and
+     all-reduce of the step's sizes past the size-1 shortcuts and checks
+     10 replays; at n = 1 the 12 steps also run through the eager body,
+     both under deterministic sums, the captured step held to it (1e-5,
+     bitwise expected) and timed against it; at n > 1 t1 / (n tn) of the
+     captured step.  The gloo run stays eager, and says so.
+     ``--only-sharded`` runs phases 1, 2 and 15 alone, phase 15 making its
+     own references;
+ 16. the "runs" less-flat downsample (``scan.lessflat_mode="runs"``) over
+     phase 5's 12 frames, staged and fused: mapped positions within 5 cm of
+     the JAX package's runs-mode run, staged and fused within 3 cm, frame
+     0's less-flat live count in both modes, stream ms per stage.
 
 Launch counts: each kernel's wrapper counts its own launches, and every
 staged phase checks them against the counts derived from its config.  A
@@ -113,8 +126,9 @@ capture, which a traced replay confirms kernel by kernel.
 The last three lines are a JSON object with each kernel's numbers
 (``launches`` from the wrappers over the staged phases, ``graph_launches``
 through replays, ``lane_launches`` through phase 13's, ``sharded_launches``
-from phase 15's ranks' wrappers and ``sharded_lane_launches`` through their
-lane replays), the card's name and power limit, and ``{"ok": true, "device":
+from phase 15's ranks' wrappers, ``sharded_graph_launches`` through their
+captured steps' replays and ``sharded_lane_launches`` through their lane
+replays), the card's name and power limit, and ``{"ok": true, "device":
 {...}}``.
 Without a CUDA device, or without the ``light_loam_tpu_torch`` package
 beside it, the script fails before printing any result.  It imports
@@ -179,7 +193,9 @@ from light_loam_tpu_torch.parallel.batch_sharded import (
     put_frames,
     sharded_batched_frame_step,
 )
+from light_loam_tpu_torch.parallel import sharded
 from light_loam_tpu_torch.parallel.sharded import (
+    _sharded_step_body,
     make_group,
     refine_hooks,
     shard_mapping_state,
@@ -275,6 +291,28 @@ JAX_UNDISTORT_MAPPED_POSITIONS = np.array([
     [7.524198055267334, 0.14557182788848877, -0.10106147080659866],
 ])
 UNDISTORT_N_FRAMES = 8
+# Phase 16: the JAX package's mapped positions (m) with the "runs" less-flat
+# downsample (runs_config), on the CPU, produced by:
+#   JAX_PLATFORMS=cpu python -c "import dataclasses as d; from
+#   light_loam_tpu.models import pipeline as pl; c = pl.PROFILES['hdl64'];
+#   pl.PROFILES['hdl64'] = d.replace(c, scan=d.replace(c.scan,
+#   lessflat_mode='runs')); p, _, _ = pl.run_synthetic(n_frames=12,
+#   profile='hdl64', n_azimuth=1800, speed=1.0, seed=0);
+#   print(p.mapped_positions().tolist())"
+JAX_RUNS_MAPPED_POSITIONS = np.array([
+    [0.0, 0.0, 0.0],
+    [0.998348593711853, 0.02180488035082817, 0.0012694337638095021],
+    [2.0058720111846924, 0.04207667335867882, 0.0007377418805845082],
+    [3.008472442626953, 0.06607302278280258, 0.0006436275434680283],
+    [4.015102386474609, 0.08774460852146149, 0.0014582430012524128],
+    [5.003109455108643, 0.1089923158288002, 0.0025407597422599792],
+    [6.012282848358154, 0.12613815069198608, 0.0012197867035865784],
+    [7.02222204208374, 0.14233486354351044, 0.0033313813619315624],
+    [8.00853443145752, 0.16262193024158478, 0.0030285720713436604],
+    [9.005297660827637, 0.18931910395622253, 0.0032841728534549475],
+    [9.998428344726562, 0.20652428269386292, 0.003075742395594716],
+    [11.003267288208008, 0.23232193291187286, 0.005121775437146425],
+])
 POSITION_TOL_M = 0.05
 # Phases 9 and 10 compare two runs on the same card.  The fused and the
 # chunked frame run the staged path's own stage functions, so the runs differ
@@ -747,6 +785,13 @@ def undistort_config():
         scan=dataclasses.replace(base.scan, occlusion_filter=True))
 
 
+def runs_config():
+    """The flagship profile with the "runs" less-flat downsample."""
+    base = PROFILES["hdl64"]
+    return dataclasses.replace(
+        base, scan=dataclasses.replace(base.scan, lessflat_mode="runs"))
+
+
 def expected_launches(cfg, n_frames: int, n_mapped: int) -> dict:
     """Launches a run makes, from its config.  compat_votes: one per
     odometry outer iteration for each of the plane and corner votes in
@@ -1140,12 +1185,14 @@ def deterministic_sums():
     version only warn).  A graph holds the kernels chosen at its capture, so
     none crosses the border."""
     fused.clear_graphs()
+    sharded.clear_graphs()
     torch.use_deterministic_algorithms(True, warn_only=True)
     try:
         yield
     finally:
         torch.use_deterministic_algorithms(False)
         fused.clear_graphs()
+        sharded.clear_graphs()
 
 
 def phase_checkpoint(kernels, p5) -> dict:
@@ -1771,6 +1818,11 @@ SHARD_STEP_TOL_M = 2e-2
 # the sharded refinement in float64 against the single call on cuda:0 (the
 # float32 landmark fit is decided by rounding; phase 14)
 SHARD_REFINE_TOL = 1e-9
+# the captured sharded step against its eager body, both under deterministic
+# sums (tests/test_torch_cuda.py's GRAPH_ATOL for the fused frame's graph;
+# bitwise equality expected, reported)
+SHARD_GRAPH_TOL = 1e-5
+PROBE_REPLAYS = 10
 SHARD_TIMEOUT_S = 600
 # Mapped positions (m) of the JAX package's sharded_mapping_step on a mesh of
 # n virtual CPU devices, mapping the JAX pipeline's own mapping inputs of the
@@ -2014,6 +2066,94 @@ def _sharded_steps(group, z, cfg, prefix, n_frames, inputs, failures,
                 overflow=overflow)
 
 
+def nccl_capture_probe(group, cfg, replays: int = PROBE_REPLAYS) -> dict:
+    """NCCL capture with nothing around it: a bare all-gather (the sharded
+    step's gather of stacks and local maps, (rows / n, 4) float32 from each
+    rank) and an all-reduce (the LM step's packed H and g, 42 float32) on
+    the group's NCCL process group, past ``ShardGroup``'s size-1 shortcuts,
+    run once eagerly (NCCL's communicator and connections), captured once
+    and replayed ``replays`` times on new inputs, every result checked
+    exactly (integer-valued floats).  At world 1 the only NCCL capture a
+    one-card machine runs."""
+    dev, n, rank = group.device, group.size, group.rank
+    rows = (cfg.stack_corner_capacity + cfg.stack_surf_capacity
+            + cfg.local_corner_capacity + cfg.local_surf_capacity) // n
+    x = torch.zeros((rows, 4), device=dev)
+    gathered = torch.empty((n * rows, 4), device=dev)
+    r = torch.zeros(42, device=dev)
+    reduced = torch.empty_like(r)
+
+    def collectives():
+        sharded._all_gather_single(gathered, x, group=group.group)
+        reduced.copy_(r)
+        dist.all_reduce(reduced, group=group.group)
+
+    collectives()
+    torch.cuda.synchronize(dev)
+    if n > 1:
+        dist.barrier(group=group.group, device_ids=[dev.index])
+    t0 = time.perf_counter()
+    graph = torch.cuda.CUDAGraph()
+    try:
+        with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+            collectives()
+        capture_s = time.perf_counter() - t0
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(0)  # the same draws on every rank
+        ranks = torch.arange(n, device=dev, dtype=torch.float32)
+        wrong = 0
+        for _ in range(replays):
+            base = torch.randint(0, 1 << 16, (rows, 4), generator=gen,
+                                 device=dev).float()
+            base_r = torch.randint(0, 1 << 16, (42,), generator=gen,
+                                   device=dev).float()
+            x.copy_(base + rank)
+            r.copy_(base_r + rank)
+            graph.replay()
+            want = (base[None] + ranks[:, None, None]).reshape(n * rows, 4)
+            wrong += int((gathered != want).sum())
+            wrong += int((reduced != n * base_r + ranks.sum()).sum())
+    finally:
+        # a graph that holds the group's collectives must go before the
+        # group (sharded.clear_graphs)
+        torch.cuda.synchronize(dev)
+        graph.reset()
+    return dict(rows=rows, replays=replays, capture_s=capture_s, wrong=wrong)
+
+
+def _captured_vs_eager(group, z, cfg, inputs, failures) -> dict:
+    """Under deterministic sums, each of phase 5's steps from its resharded
+    single-device state through the captured step (``sharded_mapping_step``
+    on the NCCL group, captured at the first) and through its eager body:
+    the largest gap over the new state and the outputs (held to
+    SHARD_GRAPH_TOL, the integer leaves equal), whether every leaf was
+    bitwise equal, and ms per step of each (CUDA events)."""
+    like = MappingState.init(cfg)
+    ms_graph, ms_eager, gap, bitwise = [], [], 0.0, True
+    with deterministic_sums():
+        for k in range(SHARD_FRAMES):
+            state = shard_mapping_state(
+                _from_npz(z, f"base{k}.state", like, group.device), group, cfg)
+            graph_out, t_graph = _timed(lambda: sharded_mapping_step(
+                state, *inputs[k], cfg, group))
+            eager_out, t_eager = _timed(lambda: _sharded_step_body(
+                state, *inputs[k], cfg, group))
+            ms_graph.append(t_graph)
+            ms_eager.append(t_eager)
+            for a, b in zip(fused._leaves(graph_out), fused._leaves(eager_out)):
+                bitwise &= bool(torch.equal(a, b))
+                if a.is_floating_point():
+                    gap = max(gap, float((a - b).abs().max()))
+                elif not torch.equal(a, b):
+                    failures.append(f"captured vs eager step, frame {k}: an "
+                                    "integer leaf differs")
+    if gap > SHARD_GRAPH_TOL:
+        failures.append(f"captured vs eager step: {gap:.3e} apart (> "
+                        f"{SHARD_GRAPH_TOL:g})")
+    return dict(gap=gap, bitwise=bitwise, ms_graph=ms_graph,
+                ms_eager=ms_eager)
+
+
 def _rank_lanes(group, z, failures) -> dict:
     """This rank's B/n lanes of phase 13's frames through the lane-sharded
     batched step (one graph replay per batched frame on its card); every
@@ -2096,6 +2236,14 @@ def shard_rank(rank, backend, n, devices, init_method, npz_path, out_dir):
         if not k.library_path().exists():
             raise RuntimeError(f"rank {rank}: {k.source.name} was not built "
                                "by phase 2")
+    stage_path = os.path.join(out_dir, f"{backend}-{n}-rank{rank}.stage")
+
+    def stage(name):
+        """Record what this rank is doing: a rank that times out names it."""
+        with open(stage_path, "w") as f:
+            f.write(name)
+
+    stage("joining the group")
     group = make_group(n, rank, backend, init_method, device=devices[rank])
     try:
         z = np.load(npz_path)
@@ -2111,12 +2259,29 @@ def shard_rank(rank, backend, n, devices, init_method, npz_path, out_dir):
         torch.cuda.reset_peak_memory_stats(dev)
         # the lanes first: their graph is captured before the group has run
         # any collective
+        stage("lanes")
         lanes = _rank_lanes(group, z, failures)
+        stage("NCCL capture probe")
+        probe = nccl_capture_probe(group, cfg) if group.captures else None
+        if probe and probe["wrong"]:
+            failures.append(f"NCCL capture probe: {probe['wrong']} values "
+                            "wrong")
         knn_call = _LastCall(mapping, "knn5")
         vote_call = _LastCall(graphvote, "compat_votes")
         try:
+            # on NCCL every step is a replay: both steps are captured before
+            # the counts start (the wrappers count the warm-up and the
+            # capture pass), and the last calls recorded are the vote
+            # step's capture, on buffers its replays fill
+            widths = (inputs[0][0].xyz.shape[0], inputs[0][1].xyz.shape[0])
+            stage("warm-up and capture of the sharded steps")
+            graphs = {name: sharded.sharded_graph(c, group, *widths)
+                      for name, c in (("base", cfg), ("vote", vcfg))
+                      if group.captures}
+            replays = {name: g.replays for name, g in graphs.items()}
             for k in (KNN5, VOTE):
                 k.launches = 0
+            stage("sharded steps")
             steps = _sharded_steps(group, z, cfg, "base", SHARD_FRAMES,
                                    inputs, failures)
             free = _sharded_steps(group, z, cfg, "free", SHARD_FRAMES, inputs,
@@ -2127,21 +2292,42 @@ def shard_rank(rank, backend, n, devices, init_method, npz_path, out_dir):
         finally:
             knn_call.restore()
             vote_call.restore()
+        graph_launches = dict.fromkeys(launches, 0)
+        for name, g in graphs.items():
+            replays[name] = g.replays - replays[name]
+            for src, c in g.kernel_launches.items():
+                graph_launches[src] += c * replays[name]
         want = {"knn.cu": 2 * cfg.outer_iterations
                 * (2 * SHARD_FRAMES + VOTE_N_FRAMES),
                 "vote.cu": vcfg.outer_iterations * VOTE_N_FRAMES}
-        if launches != want:
-            failures.append(f"launches {launches}, expected {want}")
+        total = {name: launches[name] + graph_launches[name] for name in want}
+        if total != want or (graphs and any(launches.values())):
+            failures.append(f"launches {launches} by the wrappers and "
+                            f"{graph_launches} through replays, expected "
+                            f"{want} in all ({'none' if graphs else 'all'} "
+                            "by the wrappers)")
+        graph_info = {name: dict(
+            warmup_s=g.warmup_seconds, capture_s=g.capture_seconds,
+            collectives=g.collectives, bytes=g.bytes,
+            launches=g.kernel_launches, replays=replays[name])
+            for name, g in graphs.items()}
+        stage("refinement")
         refine = _rank_refine(group, z, failures)
         kernels = _rank_kernels(knn_call.args, vote_call.args, failures)
+        stage("captured against eager step")
+        det = (_captured_vs_eager(group, z, cfg, inputs, failures)
+               if group.captures and n == 1 else None)
         result = dict(rank=rank, device=str(dev), steps=steps, free=free,
                       vote=vote, lanes=lanes, refine=refine, kernels=kernels,
-                      launches=launches, failures=failures,
+                      launches=launches, graph_launches=graph_launches,
+                      graphs=graph_info, det=det, probe=probe,
+                      failures=failures,
                       peak_mib=torch.cuda.max_memory_allocated(dev) / 2**20)
         with open(os.path.join(out_dir, f"{backend}-{n}-rank{rank}.json"),
                   "w") as f:
             json.dump(result, f)
     finally:
+        sharded.clear_graphs()
         dist.destroy_process_group()
 
 
@@ -2157,8 +2343,15 @@ def spawn_ranks(backend, n, devices, npz_path, out_dir) -> list:
     try:
         while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
             if time.monotonic() >= deadline:
+                stages = []
+                for r in range(n):
+                    path = os.path.join(out_dir, f"{backend}-{n}-rank{r}.stage")
+                    if os.path.exists(path):
+                        with open(path) as f:
+                            stages.append(f"rank {r}: {f.read()}")
                 raise TimeoutError(f"phase 15: {backend} ranks still running "
-                                   f"after {SHARD_TIMEOUT_S} s")
+                                   f"after {SHARD_TIMEOUT_S} s ("
+                                   + "; ".join(stages) + ")")
     finally:
         for p in ctx.processes:
             if p.is_alive():
@@ -2183,6 +2376,7 @@ def phase_sharded(kernels, p5=None, p13=None, p14=None) -> dict:
     runs = shard_runs(cards)
     print(f"[15 sharded] {cards} card(s) visible; runs: " + "; ".join(
         f"{b} n={n} on {', '.join(devices)}" for b, n, devices in runs)
+        + f" | NCCL {torch.cuda.nccl.version()} (capture needs >= 2.9.6)"
         + f" | nvidia-smi topo -m: {topo_links(runs[-1][2])}"
         + (" | one card: NCCL refuses two ranks on one card, so the second "
            "run is 2 gloo ranks both on cuda:0 (the exchange runs through "
@@ -2225,6 +2419,8 @@ def phase_sharded(kernels, p5=None, p13=None, p14=None) -> dict:
 
     launches = dict.fromkeys(("knn.cu", "vote.cu"), 0)
     lane_launches = dict.fromkeys(("knn.cu", "vote.cu"), 0)
+    graph_launches = dict.fromkeys(("knn.cu", "vote.cu"), 0)
+    captured_ms = {}
     failures = []
     with tempfile.TemporaryDirectory() as tmp:
         npz = os.path.join(tmp, "inputs.npz")
@@ -2248,6 +2444,7 @@ def phase_sharded(kernels, p5=None, p13=None, p14=None) -> dict:
                 for name in launches:
                     launches[name] += r["launches"][name]
                     lane_launches[name] += r["lanes"]["launches"][name]
+                    graph_launches[name] += r["graph_launches"][name]
             B = r0["lanes"]["B"]
             lane_fps = B * 1e3 / max(r["lanes"]["wall_ms"] for r in ranks)
             b4 = done.get(4)
@@ -2298,18 +2495,102 @@ def phase_sharded(kernels, p5=None, p13=None, p14=None) -> dict:
                 + ", ".join(str(r["lanes"]["launches"]) for r in ranks)
                 + " | peak memory per rank "
                 + ", ".join(f"{r['peak_mib']:.0f}" for r in ranks) + " MiB")
+            print(f"[15 sharded] {backend} n={n} " + shard_graph_line(
+                ranks, n, captured_ms, SHARD_FRAMES))
     print(f"[15 sharded] phase {time.perf_counter() - t_phase:.1f} s "
           f"(references and inputs {prep_s:.1f} s)")
     if failures:
         raise AssertionError("phase 15: " + "; ".join(failures))
-    return dict(launches=launches, lane_launches=lane_launches)
+    return dict(launches=launches, lane_launches=lane_launches,
+                graph_launches=graph_launches)
+
+
+def shard_graph_line(ranks, n, captured_ms, n_frames) -> str:
+    """Phase 15's numbers of the captured step of one run: per rank its
+    warm-up and capture seconds, the collectives, MiB and kernel launches
+    counted at capture and the replays; at NCCL n = 1 the captured step
+    against the eager body under deterministic sums and the capture probe;
+    at n > 1 t1 / (n tn) of the captured step.  A gloo run says it ran
+    eagerly.  Records rank 0's ms per captured step in ``captured_ms``."""
+    r0 = ranks[0]
+    if not r0["graphs"]:
+        return ("eager: gloo's collectives run through the host and cannot "
+                "be captured, so every step ran the eager body")
+    med = statistics.median(r0["steps"]["ms"][1:])
+    captured_ms[n] = med
+    parts = ["captured, one replay per step: " + "; ".join(
+        f"{name}: warm-up " + "/".join(
+            f"{r['graphs'][name]['warmup_s']:.2f}" for r in ranks)
+        + " s, capture " + "/".join(
+            f"{r['graphs'][name]['capture_s']:.2f}" for r in ranks)
+        + f" s (per rank), {g['collectives']} collectives "
+        f"{g['bytes'] / 2**20:.3f} MiB and launches {g['launches']} per "
+        f"replay, {g['replays']} replays"
+        for name, g in r0["graphs"].items())]
+    probe = r0["probe"]
+    parts.append(
+        f"NCCL capture probe (bare all-gather of ({probe['rows']}, 4) float32 "
+        f"a rank and all-reduce of 42, past the size-1 shortcuts): capture "
+        f"{probe['capture_s']:.3f} s, {probe['replays']} replays, "
+        f"{probe['wrong']} values wrong")
+    det = r0["det"]
+    if det:
+        parts.append(
+            f"under deterministic sums, {n_frames} steps from the resharded "
+            f"states: captured vs eager body max |diff| {det['gap']:.3e} "
+            f"(limit {SHARD_GRAPH_TOL:g}; bitwise {det['bitwise']}), ms per "
+            f"step (CUDA events, median of frames 2-{n_frames}) captured "
+            f"{statistics.median(det['ms_graph'][1:]):.2f} against eager "
+            f"{statistics.median(det['ms_eager'][1:]):.2f}")
+    if n > 1 and 1 in captured_ms:
+        parts.append(
+            f"t1 / (n tn) of the captured step {captured_ms[1] / (n * med):.3f}"
+            f" ({captured_ms[1]:.2f} ms at n = 1, {med:.2f} at n = {n})")
+    return " | ".join(parts)
+
+
+def phase_runs(kernels) -> tuple:
+    """Phase 16: phase 5's frames with the "runs" less-flat downsample,
+    staged and fused, each held to the JAX package's runs-mode positions
+    and to each other; frame 0's less-flat live count in both modes (the
+    JAX package's test expects a few % more in "runs": one centroid per
+    visit of a voxel)."""
+    cfg = runs_config()
+    _, xyz, mask = next(iter(synthetic_frames(1, cfg, n_azimuth=1800,
+                                              speed=1.0, seed=0)))
+    xyz, mask = torch.as_tensor(xyz).cuda(), torch.as_tensor(mask).cuda()
+    live = {mode: int(extract_features(xyz, mask, c.scan).less_flat.mask.sum())
+            for mode, c in (("exact", PROFILES["hdl64"]), ("runs", cfg))}
+    ratio = live["runs"] / live["exact"]
+    if not 0.97 <= ratio <= 1.10:
+        raise AssertionError(f"phase 16: less-flat live count {live} (runs / "
+                             f"exact {ratio:.4f}, the JAX test's band "
+                             "0.97-1.10)")
+    staged = phase_pipeline("16 runs mode", cfg, N_FRAMES,
+                            JAX_RUNS_MAPPED_POSITIONS, kernels)
+    fcfg = dataclasses.replace(cfg, fused_step=True)
+    graph = fused.frame_graph(fcfg, "cuda")
+    per_frame = phase_pipeline("16 runs mode", fcfg, N_FRAMES,
+                               JAX_RUNS_MAPPED_POSITIONS, kernels)
+    gap = _check_gap("phase 16 fused vs staged", per_frame["positions"],
+                     staged["positions"])
+    print(f"[16 runs mode] frame 0 less-flat live points: exact "
+          f"{live['exact']}, runs {live['runs']} (runs / exact {ratio:.4f}) "
+          f"| fused graph: warm-up {graph.warmup_seconds:.2f} s, capture "
+          f"{graph.capture_seconds:.2f} s | max |fused - staged| "
+          f"{gap * 1e3:.4f} mm (limit {SAME_CARD_TOL_M * 1e3:g}, atomic sums)"
+          f" | stream ms staged " + " ".join(
+              f"{n} {ms:.2f}" for n, ms in sorted(staged["stages"].items()))
+          + f", fused_step {per_frame['stages']['fused_step']:.2f} | frames/s "
+          f"staged {staged['fps']:.2f}, fused {per_frame['fps']:.2f}")
+    return staged, per_frame
 
 
 def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on the "
-                                 "card(s): phases 1-15 (module docstring).")
+                                 "card(s): phases 1-16 (module docstring).")
     ap.add_argument("--only-sharded", action="store_true",
                     help="phases 1, 2 and 15 only: phase 15 makes its own "
                     "references (for a run on several cards)")
@@ -2322,6 +2603,7 @@ def main(argv=None) -> int:
         p15 = phase_sharded(kernels)
         print(json.dumps({"kernels": [
             {"name": name, "sharded_launches": p15["launches"][src],
+             "sharded_graph_launches": p15["graph_launches"][src],
              "sharded_lane_launches": p15["lane_launches"][src]}
             for name, src in (("knn5", "knn.cu"), ("compat_votes", "vote.cu"))
         ]}))
@@ -2359,7 +2641,8 @@ def main(argv=None) -> int:
     p13 = phase_lanes(kernels, p9)
     p14 = phase_refine(kernels)
     p15 = phase_sharded(kernels, p5, p13, p14)
-    runs = (p5, p6, p7, p8, p9, p14) + p12
+    p16 = phase_runs(kernels)
+    runs = (p5, p6, p7, p8, p9, p14) + p12 + p16
     launches = {name: sum(p["launches"][name] for p in runs) + p11[name]
                 for name in p5["launches"]}
     graph_launches = {name: sum(p["graph_launches"][name] for p in runs)
@@ -2386,6 +2669,7 @@ def main(argv=None) -> int:
              for (_, case), v in knn.items() if case == "below"],
          "lane_launches": lane_launches["knn.cu"],
          "sharded_launches": p15["launches"]["knn.cu"],
+         "sharded_graph_launches": p15["graph_launches"]["knn.cu"],
          "sharded_lane_launches": p15["lane_launches"]["knn.cu"],
          "lanes": [
              {k: v[k] for k in ("B", "Q", "N", "counts", "max_abs_err",
@@ -2410,6 +2694,7 @@ def main(argv=None) -> int:
              for (R, K), v in vote.items()],
          "lane_launches": lane_launches["vote.cu"],
          "sharded_launches": p15["launches"]["vote.cu"],
+         "sharded_graph_launches": p15["graph_launches"]["vote.cu"],
          "sharded_lane_launches": p15["lane_launches"]["vote.cu"],
          "lanes": [
              {k: v[k] for k in ("B", "R", "K", "max_abs_err", "ms",

@@ -87,7 +87,10 @@ class ScanConfig:
     # "runs": sort-free run-length merge along the azimuth ring (a ring
     # is a 1-D space curve, so same-voxel points are almost always
     # consecutive); ring revisits of a voxel yield a duplicate centroid
-    # per visit.  The port implements "exact" only; "runs" raises.
+    # per visit (a few % denser cloud), and the output is azimuth-ordered —
+    # geometry-equivalent for the downstream plane fits, with no sort and
+    # no scatter (ops/voxel.py voxel_downsample_rings_runs).  It changes
+    # the less-flat cloud, so the trajectory too.  Default "exact".
     lessflat_mode: str = "exact"
 
     # Occluded-point / parallel-beam suppression (original LOAM §V-A;
@@ -309,8 +312,8 @@ class PipelineConfig:
     # up to one frame, like /aft_mapped_to_init consumers see).
     sync_mapping: bool = True
     # Latency mode: run features→odometry→mapping as ONE program per
-    # frame instead of three.  Not ported yet: True raises
-    # NotImplementedError in the port's Pipeline.
+    # frame instead of three: on a card one CUDA graph replay per frame
+    # (models/fused.py).
     fused_step: bool = False
 
 

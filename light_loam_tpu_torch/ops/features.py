@@ -31,7 +31,10 @@ import torch
 
 from light_loam_tpu_torch.config import ScanConfig
 from light_loam_tpu_torch.core.frame import PointCloud, RangeImage, ScanFeatures
-from light_loam_tpu_torch.ops.voxel import voxel_downsample_rings
+from light_loam_tpu_torch.ops.voxel import (
+    voxel_downsample_rings,
+    voxel_downsample_rings_runs,
+)
 
 _INT32_MAX = 2**31 - 1
 
@@ -313,12 +316,8 @@ def _compact_selected(grid: RangeImage, sel, okey, capacity: int) -> PointCloud:
 
 
 def check_scan_config(cfg: ScanConfig) -> None:
-    """Raise for the less-flat mode this port does not implement ("runs",
-    a TPU workaround) and for an unknown one."""
-    if cfg.lessflat_mode == "runs":
-        raise NotImplementedError(
-            "ScanConfig.lessflat_mode='runs' is not ported; use 'exact'")
-    if cfg.lessflat_mode != "exact":
+    """Raise for an unknown less-flat mode."""
+    if cfg.lessflat_mode not in ("exact", "runs"):
         raise ValueError(
             f"unknown ScanConfig.lessflat_mode={cfg.lessflat_mode!r}")
 
@@ -329,8 +328,9 @@ def extract_features(
     """Full feature-extraction stage for one frame.
 
     xyz: (max_points, 3) raw sensor points; mask: validity of each slot.
-    The "runs" less-flat mode (a TPU workaround) raises
-    NotImplementedError."""
+    The less-flat cloud is downsampled per ring by ``cfg.lessflat_mode``:
+    "exact" (voxel_downsample_rings) or "runs"
+    (voxel_downsample_rings_runs)."""
     check_scan_config(cfg)
     finite = torch.isfinite(xyz).all(dim=-1)
     r2 = xyz[:, 0] * xyz[:, 0] + xyz[:, 1] * xyz[:, 1] + xyz[:, 2] * xyz[:, 2]
@@ -363,7 +363,9 @@ def extract_features(
     lf_sel = band & (label <= 0) & grid.mask
     if occluded is not None:
         lf_sel = lf_sel & ~occluded
-    lf_xyz, lf_rel, lf_mask = voxel_downsample_rings(
+    downsample = (voxel_downsample_rings_runs if cfg.lessflat_mode == "runs"
+                  else voxel_downsample_rings)
+    lf_xyz, lf_rel, lf_mask = downsample(
         grid.xyz, grid.rel, lf_sel, cfg.less_flat_leaf,
         cfg.max_less_flat // cfg.n_scans,
     )

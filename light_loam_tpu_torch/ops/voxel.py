@@ -163,6 +163,72 @@ def voxel_downsample_rings(
     return out[..., :3], out[..., 3], keep
 
 
+def voxel_downsample_rings_runs(
+    xyz: torch.Tensor,
+    rel: torch.Tensor,
+    mask: torch.Tensor,
+    leaf: float,
+    ring_capacity: int,
+    max_run: int = 32,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Sort-free per-ring voxel downsample: run-length merge along the
+    azimuth axis (``ScanConfig.lessflat_mode="runs"``).
+
+    A laser ring is a 1-D space curve, so points sharing a voxel are almost
+    always azimuth-consecutive; merging maximal same-voxel runs reproduces
+    the per-ring voxel grid up to (a) voxels the ring re-enters later (one
+    centroid per visit: a few % denser cloud) and (b) runs longer than
+    ``max_run`` slots, masked gaps included (the tail points leave the
+    centroid).  Masked slots are transparent: a run continues across them.
+
+    The layout of ``voxel_downsample_rings`` — (R, ring_capacity)
+    ring-slotted, decimated by a uniform stride when a ring overflows — but
+    with rows in azimuth order.  Cumulative sums and maxima, a per-row
+    binary search and gathers: no sort and no scatter, and no host read."""
+    R, H = mask.shape
+    C = ring_capacity
+    dev = xyz.device
+    key = voxel_keys(xyz, mask, leaf)
+
+    # the previous live slot of each slot (an exclusive running max of the
+    # live slots' indices), -1 before the first
+    iota = torch.arange(H, device=dev).expand(R, H)
+    live = torch.where(mask, iota, torch.full_like(iota, -1))
+    prev = torch.cat([torch.full((R, 1), -1, dtype=torch.int64, device=dev),
+                      torch.cummax(live, dim=1).values[:, :-1]], dim=1)
+    new_key = key != key.gather(1, torch.clamp(prev, min=0))
+    head = mask & ((prev < 0) | new_key)
+
+    # run ids, nondecreasing along the ring: a masked slot carries the run
+    # before it, so the first slot whose id is >= j is run j's head
+    seg = torch.cumsum(head.to(torch.int64), dim=1) - 1
+    n = (seg[:, -1] + 1)[:, None]
+    j = torch.arange(C, device=dev).expand(R, C)
+    src_run = torch.where(n > C, (j * n) // C, j)
+    keep = j < torch.clamp(n, max=C)
+    start = torch.searchsorted(seg, src_run)
+    end = torch.searchsorted(seg, src_run + 1)
+
+    # the mean over each run's window, one slot of every run per pass
+    payload = torch.cat([xyz, rel[..., None], mask[..., None].to(xyz.dtype)],
+                        dim=-1)
+    sum_xyz = xyz.new_zeros((R, C, 3))
+    sum_rel = rel.new_zeros((R, C))
+    cnt = xyz.new_zeros((R, C))
+    for k in range(max_run):
+        idx = torch.clamp(start + k, max=H - 1)
+        g = payload.gather(1, idx[..., None].expand(R, C, 5))
+        w = ((start + k) < end).to(xyz.dtype) * g[..., 4]
+        sum_xyz = sum_xyz + w[..., None] * g[..., :3]
+        sum_rel = sum_rel + w * g[..., 3]
+        cnt = cnt + w
+    denom = torch.clamp(cnt, min=1.0)
+    zero = torch.zeros((), device=dev)
+    out_xyz = torch.where(keep[..., None], sum_xyz / denom[..., None], zero)
+    out_rel = torch.where(keep, sum_rel / denom, zero)
+    return out_xyz, out_rel, keep & (cnt > 0)
+
+
 def compact_rows(
     mask: torch.Tensor,
     capacity: int,

@@ -9,7 +9,11 @@ identically, as the JAX module assembles global arrays.
     torchrun --nproc-per-node N program.py
 
 sets ``RANK``, ``WORLD_SIZE``, ``LOCAL_RANK``, ``LOCAL_WORLD_SIZE``,
-``MASTER_ADDR`` and ``MASTER_PORT`` for every rank it starts.
+``MASTER_ADDR`` and ``MASTER_PORT`` for every rank it starts.  Ranks joined
+over NCCL go through the same captured sharded step as spawned ones
+(``sharded.sharded_mapping_step``: one graph replay per step on each rank);
+over gloo the step runs eagerly.  Such a program calls
+``sharded.clear_graphs()`` before ``dist.destroy_process_group()``.
 """
 
 from __future__ import annotations

@@ -19,12 +19,17 @@ dedup voxel (``voxel_owner``), so
     ``lm_solve(allreduce=...)``, so every rank solves the same 6×6 system.
 
 The step reads nothing to the host: its collectives take static shapes and
-its counts stay on the device.
+its counts stay on the device.  So on a card, over NCCL, it is captured once
+as a CUDA graph per rank with its collectives inside (``ShardedStepGraph``,
+the counterpart of the JAX package's jitted ``shard_map`` step), and each
+step is one replay.  gloo's collectives run through the host and cannot be
+captured: on a gloo group the same body runs eagerly.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple, Optional, Tuple
+import time
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import torch
 import torch.distributed as dist
@@ -32,6 +37,7 @@ import torch.distributed as dist
 from light_loam_tpu_torch.config import MappingConfig
 from light_loam_tpu_torch.core import quaternion as quat
 from light_loam_tpu_torch.core.frame import PointCloud
+from light_loam_tpu_torch.models.fused import WARMUP_PASSES, _clone, _leaves
 from light_loam_tpu_torch.models.mapping import (
     MapStore,
     MappingState,
@@ -47,14 +53,23 @@ from light_loam_tpu_torch.models.mapping import (
     plane_fit_factors,
 )
 from light_loam_tpu_torch.ops import graphvote
+from light_loam_tpu_torch.ops.cuda_knn import KNN5
+from light_loam_tpu_torch.ops.cuda_vote import VOTE
 from light_loam_tpu_torch.ops.voxel import compact_rows, voxel_downsample
 from light_loam_tpu_torch.solver import FactorSet, PlaneNormFactors, lm_solve
+
+
+# the single-tensor all-gather: ``all_gather_into_tensor``, which PyTorch
+# 2.13 renamed ``all_gather_single``
+_all_gather_single = (getattr(dist, "all_gather_single", None)
+                      or dist.all_gather_into_tensor)
 
 
 class ShardGroup:
     """This process's place in a group of ``size`` ranks: its rank, its
     device and the process group (None: the default one).  Counts the
-    collectives it runs and the bytes this rank contributes to them."""
+    collectives it runs and the bytes this rank contributes to them; a
+    replay of a captured step adds the counts taken at its capture."""
 
     def __init__(self, rank: int, size: int, device,
                  group: Optional[dist.ProcessGroup] = None):
@@ -64,6 +79,21 @@ class ShardGroup:
         self.group = group
         self.collectives = 0
         self.bytes = 0
+
+    @property
+    def backend(self) -> Optional[str]:
+        """The process group's backend ("nccl", "gloo"); None when this
+        process has joined no group."""
+        if not dist.is_initialized():
+            return None
+        return str(dist.get_backend(self.group))
+
+    @property
+    def captures(self) -> bool:
+        """Whether the sharded step runs as a captured graph here: on a card
+        over NCCL, whose collectives are device work.  gloo's go through the
+        host and cannot be captured."""
+        return self.device.type == "cuda" and self.backend == "nccl"
 
     def _count(self, x: torch.Tensor) -> None:
         self.collectives += 1
@@ -76,10 +106,10 @@ class ShardGroup:
         if x.dtype == torch.bool:
             return self.all_gather(x.to(torch.uint8)).to(torch.bool)
         x = x.contiguous()
-        parts = [torch.empty_like(x) for _ in range(self.size)]
-        dist.all_gather(parts, x, group=self.group)
+        out = x.new_empty((self.size * x.shape[0],) + tuple(x.shape[1:]))
+        _all_gather_single(out, x, group=self.group)
         self._count(x)
-        return torch.cat(parts)
+        return out
 
     def all_reduce(self, x: torch.Tensor) -> torch.Tensor:
         """The sum of every rank's ``x`` (a new tensor)."""
@@ -256,7 +286,7 @@ class ShardedMappingOutput(NamedTuple):
     stack_overflow: torch.Tensor
 
 
-def sharded_mapping_step(
+def _sharded_step_body(
     state: MappingState,
     corner_last: PointCloud,
     surf_last: PointCloud,
@@ -265,17 +295,9 @@ def sharded_mapping_step(
     cfg: MappingConfig,
     group: ShardGroup,
 ) -> Tuple[MappingState, ShardedMappingOutput]:
-    """One mapping step with the point stores sharded over ``group``:
-    ``state`` is this rank's part (``shard_mapping_state``), the clouds and
-    the odometry pose are the same on every rank, and every rank returns
-    the same pose and totals.
-
-    Matches ``models.mapping.mapping_step`` up to the JAX package's three
-    documented differences: k-NN ties, dedup slot assignment, and in vote
-    mode the vote regions, since the gathered query set is owner-grouped
-    rather than sorted by voxel key and the vote chunks it by index
-    ranges.  Only the local neighbourhoods, the stacks, and the 6×6 normal
-    equations cross between the ranks."""
+    """The sharded mapping step (``sharded_mapping_step``) on the tensors it
+    is given, without a host read: what ``ShardedStepGraph`` captures, and
+    what a gloo group runs eagerly."""
     check_mapping_config(cfg)
     n, rank = group.size, group.rank
     for name in ("stack_corner_capacity", "stack_surf_capacity",
@@ -418,6 +440,192 @@ def sharded_mapping_step(
         corner=corner_store, surf=surf_store, cen=cen, q_wm=q_wm, t_wm=t_wm,
         frame=state.frame + 1)
     return new_state, ShardedMappingOutput(q_w, t_w, *totals.unbind())
+
+
+class ShardedStepGraph:
+    """This rank's sharded step of one (config, group, cloud widths)
+    captured as a CUDA graph with its collectives inside, and the static
+    buffers it replays on: the rank's ``MappingState`` (stores at
+    ``capacity // n``), ``corner_last`` and ``surf_last`` at their widths,
+    the odometry pose and the ``ShardedMappingOutput``.  The captured step
+    writes the new state over the old one and the outputs into their
+    buffers; ``run`` copies the caller's arguments in, replays once and
+    hands back copies.  Every rank of the group captures the same
+    collectives in the same order, and a replay waits inside NCCL's kernels
+    for its peers' replays: every rank replays once per step.
+
+    What the capture needs, as run with PyTorch 2.11 and NCCL 2.28.9 on
+    one and on four H100s: the warm-up pass runs every collective of the
+    step eagerly at the captured sizes (NCCL sets up its communicator and
+    its connections at a group's first collectives, which a capture cannot
+    hold); the step is captured in thread-local mode, since
+    ProcessGroupNCCL's watchdog thread queries the events of earlier
+    collectives, and under CUDA's default global mode a query from any
+    thread invalidates a capture; and the capture starts once the warm-up
+    has finished on the card and on every rank (a barrier).  The global
+    mode and a capture without the barrier were not tried.  A capture that
+    fails raises.  Every graph that holds a group's collectives must be
+    destroyed before the group (``clear_graphs``): NCCL's teardown waits
+    for it, and four ranks that destroyed their group first hung.
+
+    ``kernel_launches`` is what the hand-written kernels' wrappers counted
+    while the step was captured, ``collectives`` and ``bytes`` what the
+    group counted (a replay adds them to the group's counts; the capture
+    itself leaves them as they were), ``replays`` the replays.  On the CPU
+    there is nothing to capture: ``run`` runs the step on the same static
+    buffers."""
+
+    def __init__(self, cfg: MappingConfig, group: ShardGroup,
+                 corner_width: int, surf_width: int):
+        self.cfg, self.group, self.device = cfg, group, group.device
+        dev = self.device
+        self.state = shard_mapping_state(MappingState.init(cfg, dev), group,
+                                         cfg)
+        self.corner = PointCloud.zeros(corner_width, dev)
+        self.surf = PointCloud.zeros(surf_width, dev)
+        self.q = quat.quat_identity(device=dev)
+        self.t = torch.zeros(3, device=dev)
+        i32 = dict(dtype=torch.int32, device=dev)
+        self.out = ShardedMappingOutput(
+            torch.zeros(4, device=dev), torch.zeros(3, device=dev),
+            *(torch.zeros((), **i32) for _ in range(6)))
+        self.graph = None
+        self.replays = 0
+        self.collectives = self.bytes = 0
+        self.kernel_launches: Dict[str, int] = {}
+        self.warmup_seconds = self.capture_seconds = 0.0
+        if dev.type == "cuda":
+            with torch.cuda.device(dev):
+                self._capture()
+
+    def _step(self) -> None:
+        """One step on the static buffers: the new state over the old."""
+        state, out = _sharded_step_body(self.state, self.corner, self.surf,
+                                        self.q, self.t, self.cfg, self.group)
+        for dst, src in zip(_leaves((self.state, self.out)),
+                            _leaves((state, out))):
+            dst.copy_(src)
+
+    def _capture(self) -> None:
+        """Warm up on a side stream (the static buffers' empty map, which
+        every call overwrites), then capture one step."""
+        main = torch.cuda.current_stream(self.device)
+        t0 = time.perf_counter()
+        side = torch.cuda.Stream(self.device)
+        side.wait_stream(main)
+        with torch.cuda.stream(side):
+            for _ in range(WARMUP_PASSES):
+                self._step()
+        main.wait_stream(side)
+        torch.cuda.synchronize(self.device)
+        if self.group.size > 1:
+            dist.barrier(group=self.group.group,
+                         device_ids=[self.device.index])
+            torch.cuda.synchronize(self.device)
+        self.warmup_seconds = time.perf_counter() - t0
+
+        kernels = (KNN5, VOTE)
+        before = [k.launches for k in kernels]
+        counts = (self.group.collectives, self.group.bytes)
+        t0 = time.perf_counter()
+        graph = torch.cuda.CUDAGraph()
+        try:
+            with torch.cuda.graph(graph, capture_error_mode="thread_local"):
+                self._step()
+        finally:
+            self.collectives = self.group.collectives - counts[0]
+            self.bytes = self.group.bytes - counts[1]
+            self.group.collectives, self.group.bytes = counts
+        self.capture_seconds = time.perf_counter() - t0
+        self.graph = graph
+        for k, b in zip(kernels, before):
+            self.kernel_launches[k.source.name] = k.launches - b
+
+    def run(self, state: MappingState, corner_last: PointCloud,
+            surf_last: PointCloud, q_odom: torch.Tensor,
+            t_odom: torch.Tensor) -> Tuple[MappingState, ShardedMappingOutput]:
+        """One step from the given arguments (``sharded_mapping_step``'s):
+        copies of the new state and of the outputs."""
+        for dst, src in zip(
+                _leaves((self.state, self.corner, self.surf, self.q, self.t)),
+                _leaves((state, corner_last, surf_last, q_odom, t_odom))):
+            if dst.shape != src.shape:
+                raise ValueError(
+                    f"ShardedStepGraph: argument of shape {tuple(src.shape)} "
+                    f"where the step was built for {tuple(dst.shape)}")
+            dst.copy_(src, non_blocking=True)
+        if self.graph is None:
+            self._step()
+        else:
+            self.graph.replay()
+            self.replays += 1
+            self.group.collectives += self.collectives
+            self.group.bytes += self.bytes
+        return _clone(self.state), _clone(self.out)
+
+
+_GRAPHS: Dict[tuple, ShardedStepGraph] = {}
+
+
+def sharded_graph(cfg: MappingConfig, group: ShardGroup, corner_width: int,
+                  surf_width: int) -> ShardedStepGraph:
+    """The captured step of (cfg, group, its device, the cloud widths),
+    captured at first use; every rank of the group must ask for it at the
+    same step.  A failed capture raises and leaves nothing behind."""
+    key = (cfg, group, group.device, corner_width, surf_width)
+    if key not in _GRAPHS:
+        _GRAPHS[key] = ShardedStepGraph(cfg, group, corner_width, surf_width)
+    return _GRAPHS[key]
+
+
+def clear_graphs() -> None:
+    """Destroy every captured sharded step and the device memory it holds:
+    before its process group is destroyed (NCCL's teardown waits for the
+    graphs that hold the group's collectives, and a rank that destroys its
+    group first hangs), and when the deterministic-sums setting changes (a
+    graph keeps the kernels it was captured with).  A graph is destroyed
+    even where a caller still holds its ``ShardedStepGraph``, whose ``run``
+    then raises."""
+    for g in _GRAPHS.values():
+        if g.graph is not None:
+            torch.cuda.synchronize(g.device)
+            g.graph.reset()
+    _GRAPHS.clear()
+
+
+def sharded_mapping_step(
+    state: MappingState,
+    corner_last: PointCloud,
+    surf_last: PointCloud,
+    q_odom: torch.Tensor,
+    t_odom: torch.Tensor,
+    cfg: MappingConfig,
+    group: ShardGroup,
+) -> Tuple[MappingState, ShardedMappingOutput]:
+    """One mapping step with the point stores sharded over ``group``:
+    ``state`` is this rank's part (``shard_mapping_state``), the clouds and
+    the odometry pose are the same on every rank, and every rank returns
+    the same pose and totals.
+
+    Matches ``models.mapping.mapping_step`` up to the JAX package's three
+    documented differences: k-NN ties, dedup slot assignment, and in vote
+    mode the vote regions, since the gathered query set is owner-grouped
+    rather than sorted by voxel key and the vote chunks it by index
+    ranges.  Only the local neighbourhoods, the stacks, and the 6×6 normal
+    equations cross between the ranks.
+
+    The path follows the group (``ShardGroup.captures``): on a card over
+    NCCL the step is one replay of this rank's ``ShardedStepGraph``,
+    captured at the first call (every rank must make it), and a capture
+    that fails raises; on a gloo group, on the CPU or on cards, the body
+    runs eagerly, since gloo's collectives run through the host and cannot
+    be captured."""
+    if not group.captures:
+        return _sharded_step_body(state, corner_last, surf_last, q_odom,
+                                  t_odom, cfg, group)
+    graph = sharded_graph(cfg, group, corner_last.xyz.shape[0],
+                          surf_last.xyz.shape[0])
+    return graph.run(state, corner_last, surf_last, q_odom, t_odom)
 
 
 def refine_hooks(group: ShardGroup, k_local: int) -> dict:

@@ -87,7 +87,6 @@ def test_cuda_pipeline_raises_without_cuda(monkeypatch):
 
 
 @pytest.mark.parametrize("section,field,value,error", [
-    ("scan", "lessflat_mode", "runs", NotImplementedError),
     ("scan", "lessflat_mode", "bogus", ValueError),
     ("odometry", "plane_vote_mode", "bogus", ValueError),
     ("mapping", "vote_mode", "bogus", ValueError),
@@ -100,6 +99,16 @@ def test_unported_options_raise(section, field, value, error):
     cfg = dataclasses.replace(cfg, **{section: sub})
     with pytest.raises(error):
         torch_pipeline.Pipeline(cfg, device="cpu")
+
+
+def test_runs_lessflat_mode_builds():
+    """``scan.lessflat_mode="runs"`` (ops/voxel.py
+    ``voxel_downsample_rings_runs``) is ported: the Pipeline builds on the
+    CPU."""
+    cfg = torch_pipeline.PROFILES["hdl64-small"]
+    cfg = dataclasses.replace(
+        cfg, scan=dataclasses.replace(cfg.scan, lessflat_mode="runs"))
+    assert torch_pipeline.Pipeline(cfg, device="cpu").cfg.scan.lessflat_mode == "runs"
 
 
 def test_fused_step_builds():

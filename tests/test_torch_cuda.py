@@ -515,11 +515,15 @@ ATOMIC_ATOL_M = 0.03
 def deterministic_sums():
     """``index_add_`` without atomics, for this test only.  Graphs are
     captured with the setting in force, so none outlives the test."""
+    from light_loam_tpu_torch.parallel import sharded
+
     fused.clear_graphs()
+    sharded.clear_graphs()
     torch.use_deterministic_algorithms(True, warn_only=True)
     yield
     torch.use_deterministic_algorithms(False)
     fused.clear_graphs()
+    sharded.clear_graphs()
 
 
 def _small_frames(cfg, n, device):
@@ -908,6 +912,169 @@ def test_refine_profiler_trace_records_kernels(cuda, tmp_path):
                for e in prof.events())
 
 
+def _shard_cfg():
+    """tests/test_sharded.py's mapping capacities."""
+    from light_loam_tpu_torch.config import MappingConfig
+
+    return MappingConfig(
+        map_corner_capacity=8192, map_surf_capacity=16384,
+        local_corner_capacity=8192, local_surf_capacity=16384,
+        stack_corner_capacity=512, stack_surf_capacity=2048, knn_tile=1024)
+
+
+def _shard_frames(cfg, device, n_frames=4):
+    """tests/test_sharded.py's clouds of ``n_frames`` frames, each with the
+    single-device state before it: [(state, corner, surf, q, t)]."""
+    world = World.urban(seed=11)
+    rng = np.random.default_rng(0)
+    single = MappingState.init(cfg, device)
+    frames = []
+    for k in range(n_frames):
+        pts = simulate_scan(world, np.array([0.5 * k, 0.0, 0.0]),
+                            n_azimuth=500, noise=0.005, seed=30 + k)
+        idx = rng.permutation(len(pts))
+
+        def cloud(p, cap):
+            xyz = torch.zeros((cap, 3))
+            xyz[:len(p)] = torch.from_numpy(p)
+            return PointCloud(xyz.to(device), torch.zeros(cap, device=device),
+                              (torch.arange(cap) < len(p)).to(device))
+
+        c, s = cloud(pts[idx[:400]], 512), cloud(pts[idx[400:2400]], 2048)
+        q = torch.tensor([0.0, 0.0, 0.0, 1.0], device=device)
+        t = torch.tensor([0.5 * k + 0.05, 0.05, 0.05], device=device)
+        frames.append((single, c, s, q, t))
+        single, _ = mapping_step(single, c, s, q, t, cfg)
+    return frames
+
+
+@pytest.fixture
+def nccl_world_one(cuda, tmp_path):
+    """This process as world 1 of an NCCL group on the card; its captured
+    sharded steps go before the group does."""
+    import torch.distributed as dist
+    from light_loam_tpu_torch.parallel import sharded
+
+    group = sharded.make_group(1, 0, "nccl", f"file://{tmp_path}/rdzv",
+                               device=cuda)
+    try:
+        yield group
+    finally:
+        sharded.clear_graphs()
+        dist.destroy_process_group()
+
+
+@pytest.mark.cuda
+def test_sharded_step_world_one_over_nccl(cuda, nccl_world_one):
+    """``sharded_mapping_step`` at world 1 over NCCL on the card, one step
+    from each of 4 successive single-device states (tests/test_sharded.py's
+    capacities and clouds): within the JAX test's one-step bounds of
+    ``mapping_step`` from the same state (both add with atomics), every
+    step one replay of the captured step, every 5-NN through the kernel."""
+    from light_loam_tpu_torch.parallel import sharded
+    from light_loam_tpu_torch.parallel.sharded import (
+        shard_mapping_state,
+        sharded_mapping_step,
+    )
+
+    cfg, group = _shard_cfg(), nccl_world_one
+    assert group.captures
+    frames = _shard_frames(cfg, cuda)
+    KNN5.launches = 0
+    for single, c, s, q, t in frames:
+        state = shard_mapping_state(single, group, cfg)
+        _, out_s = mapping_step(single, c, s, q, t, cfg)
+        _, out_m = sharded_mapping_step(state, c, s, q, t, cfg, group)
+        assert float((out_m.t_w - out_s.t_w).norm()) < 2e-2
+        sf, sf_ref = int(out_m.surf_factors), int(out_s.surf_factors)
+        assert abs(sf - sf_ref) <= max(5, 0.03 * sf_ref)
+        mp, mp_ref = int(out_m.map_surf_points), int(out_s.map_surf_points)
+        assert abs(mp - mp_ref) <= max(10, 0.02 * mp_ref)
+    assert sf > 100
+    (graph,) = sharded._GRAPHS.values()
+    per_replay = 2 * cfg.outer_iterations
+    assert graph.replays == 4
+    assert graph.kernel_launches == {"knn.cu": per_replay, "vote.cu": 0}
+    # the wrappers counted the warm-up and the capture pass and no replay;
+    # the single-device steps launched their own
+    assert KNN5.launches == (fused.WARMUP_PASSES + 1 + 4) * per_replay
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vote", [False, True])
+def test_captured_sharded_step_equals_eager_body(cuda, nccl_world_one,
+                                                 deterministic_sums, vote):
+    """Under deterministic sums the captured step (one replay a step) is
+    bitwise the eager body from the same resharded state, state and
+    outputs; the capture counted 4 knn5 launches (2 with the vote's
+    compat_votes), no collective at world 1 and no host read."""
+    from light_loam_tpu_torch.parallel import sharded
+    from light_loam_tpu_torch.parallel.sharded import (
+        _sharded_step_body,
+        shard_mapping_state,
+        sharded_mapping_step,
+    )
+
+    cfg, group = _shard_cfg(), nccl_world_one
+    if vote:
+        cfg = dataclasses.replace(cfg, vote_mode="simple", vote_start_frame=1)
+    for k, (single, c, s, q, t) in enumerate(_shard_frames(cfg, cuda)):
+        state = shard_mapping_state(single, group, cfg)
+        if k:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            got = sharded_mapping_step(state, c, s, q, t, cfg, group)
+        finally:
+            torch.cuda.set_sync_debug_mode("default")
+        want = _sharded_step_body(state, c, s, q, t, cfg, group)
+        for a, b in zip(fused._leaves(got), fused._leaves(want)):
+            assert torch.equal(a, b)
+    assert int(want[1].surf_factors) > 100
+    (graph,) = sharded._GRAPHS.values()
+    assert graph.replays == 4 and graph.collectives == 0
+    assert graph.kernel_launches == {
+        "knn.cu": 2 * cfg.outer_iterations,
+        "vote.cu": cfg.outer_iterations if vote else 0}
+
+
+@pytest.mark.cuda
+def test_nccl_capture_probe_world_one(cuda, nccl_world_one):
+    """A bare all-gather and all-reduce of the sharded step's sizes on the
+    world-1 NCCL group, past ``ShardGroup``'s size-1 shortcuts, captured
+    and replayed 10 times (chip_smoke.py phase 15 runs the same probe at
+    the flagship sizes)."""
+    from chip_smoke import nccl_capture_probe
+
+    probe = nccl_capture_probe(nccl_world_one, _shard_cfg())
+    assert probe["replays"] == 10 and probe["wrong"] == 0
+    assert probe["rows"] == 512 + 2048 + 8192 + 16384
+
+
+@pytest.mark.cuda
+def test_runs_mode_fused_frame_captures(cuda):
+    """``lessflat_mode="runs"`` in the fused frame: the capture holds it,
+    and the positions stay within the 3 cm of two runs with atomic sums of
+    the staged runs-mode frames."""
+    base = tpl.PROFILES["hdl64-small"]
+    cfg = dataclasses.replace(
+        base, scan=dataclasses.replace(base.scan, lessflat_mode="runs"))
+    fcfg = dataclasses.replace(cfg, fused_step=True)
+    fused.clear_graphs()
+    run = dict(n_frames=4, n_azimuth=700, speed=0.6, seed=2)
+    try:
+        graph = fused.frame_graph(fcfg, cuda)
+        pipe, res = _run_synthetic(fcfg, run, "cuda")
+        staged, _ = _run_synthetic(cfg, run, "cuda")
+        assert graph.replays == run["n_frames"] and all(r.mapped for r in res)
+        np.testing.assert_allclose(pipe.mapped_positions(),
+                                   staged.mapped_positions(), rtol=0,
+                                   atol=ATOMIC_ATOL_M)
+        assert np.abs(pipe.mapped_positions()[-1]).max() > 1.0
+    finally:
+        fused.clear_graphs()
+
+
 @pytest.mark.cuda
 def test_failed_capture_raises(cuda, monkeypatch):
     """A body that reads to the host passes its eager warm-up and breaks
@@ -928,56 +1095,3 @@ def test_failed_capture_raises(cuda, monkeypatch):
         fused.fused_frame_step(*_init_states(cfg, cuda), xyz, mask, cfg)
     assert not fused._GRAPHS
     assert len(calls) <= fused.WARMUP_PASSES + 1
-
-
-@pytest.mark.cuda
-def test_sharded_step_world_one_over_nccl(cuda, tmp_path):
-    """``sharded_mapping_step`` at world 1 over NCCL on the card, one step
-    from each of 4 successive single-device states (tests/test_sharded.py's
-    capacities and clouds): within the JAX test's one-step bounds of
-    ``mapping_step`` from the same state (both add with atomics), every
-    5-NN through the kernel."""
-    import torch.distributed as dist
-    from light_loam_tpu_torch.config import MappingConfig
-    from light_loam_tpu_torch.parallel.sharded import (
-        make_group,
-        shard_mapping_state,
-        sharded_mapping_step,
-    )
-
-    cfg = MappingConfig(
-        map_corner_capacity=8192, map_surf_capacity=16384,
-        local_corner_capacity=8192, local_surf_capacity=16384,
-        stack_corner_capacity=512, stack_surf_capacity=2048, knn_tile=1024)
-    group = make_group(1, 0, "nccl", f"file://{tmp_path}/rdzv", device=cuda)
-    try:
-        world = World.urban(seed=11)
-        rng = np.random.default_rng(0)
-        single = MappingState.init(cfg, cuda)
-        for k in range(4):
-            pts = simulate_scan(world, np.array([0.5 * k, 0.0, 0.0]),
-                                n_azimuth=500, noise=0.005, seed=30 + k)
-            idx = rng.permutation(len(pts))
-
-            def cloud(p, cap):
-                xyz = torch.zeros((cap, 3))
-                xyz[:len(p)] = torch.from_numpy(p)
-                return PointCloud(xyz.to(cuda), torch.zeros(cap, device=cuda),
-                                  (torch.arange(cap) < len(p)).to(cuda))
-
-            c, s = cloud(pts[idx[:400]], 512), cloud(pts[idx[400:2400]], 2048)
-            q = torch.tensor([0.0, 0.0, 0.0, 1.0], device=cuda)
-            t = torch.tensor([0.5 * k + 0.05, 0.05, 0.05], device=cuda)
-            state = shard_mapping_state(single, group, cfg)
-            single, out_s = mapping_step(single, c, s, q, t, cfg)
-            KNN5.launches = 0
-            _, out_m = sharded_mapping_step(state, c, s, q, t, cfg, group)
-            assert KNN5.launches == 2 * cfg.outer_iterations
-            assert float((out_m.t_w - out_s.t_w).norm()) < 2e-2
-            sf, sf_ref = int(out_m.surf_factors), int(out_s.surf_factors)
-            assert abs(sf - sf_ref) <= max(5, 0.03 * sf_ref)
-            mp, mp_ref = int(out_m.map_surf_points), int(out_s.map_surf_points)
-            assert abs(mp - mp_ref) <= max(10, 0.02 * mp_ref)
-        assert sf > 100
-    finally:
-        dist.destroy_process_group()

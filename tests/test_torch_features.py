@@ -132,6 +132,33 @@ def test_extract_features_with_occlusion_filter_matches_jax(scan, occluded_jax,
                                atol=1e-5)
 
 
+RUNS = dataclasses.replace(CFG, lessflat_mode="runs")
+
+
+def test_extract_features_runs_mode_matches_jax(scan):
+    """``lessflat_mode="runs"``: the less-flat cloud against the JAX
+    package's, live counts and masks equal, centroids within 1e-5; a few %
+    more live points than the exact mode (one centroid per visit of a
+    voxel), and the other clouds untouched by the mode."""
+    xyz, mask = scan
+    j = jf.extract_features(jnp.asarray(xyz), jnp.asarray(mask), RUNS)
+    t = tf.extract_features(torch.as_tensor(xyz), torch.as_tensor(mask), RUNS)
+    exact = tf.extract_features(torch.as_tensor(xyz), torch.as_tensor(mask),
+                                CFG)
+    jm = np.asarray(j.less_flat.mask)
+    n_runs, n_exact = int(t.less_flat.mask.sum()), int(exact.less_flat.mask.sum())
+    assert n_runs == int(jm.sum()) > 1000
+    assert 0.97 * n_exact <= n_runs <= 1.10 * n_exact, (n_exact, n_runs)
+    np.testing.assert_array_equal(t.less_flat.mask.numpy(), jm)
+    np.testing.assert_allclose(t.less_flat.xyz.numpy(), np.asarray(j.less_flat.xyz),
+                               rtol=0, atol=1e-5)
+    np.testing.assert_allclose(t.less_flat.rel.numpy(), np.asarray(j.less_flat.rel),
+                               rtol=0, atol=1e-5)
+    for cloud in ("sharp", "less_sharp", "flat"):
+        for a, b in zip(getattr(t, cloud), getattr(exact, cloud)):
+            assert torch.equal(a, b)
+
+
 def test_range_image_matches_jax(scan):
     xyz, mask = scan
     j = jf.extract_features(jnp.asarray(xyz), jnp.asarray(mask), CFG).full

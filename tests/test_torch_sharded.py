@@ -16,8 +16,9 @@ Tolerances:
     in another order);
   * the sharded mapping step (tests/test_sharded.py's CFG and frames, one
     step from each of 10 successive single-device states) against the
-    port's ``mapping_step``: the JAX test's bounds, t_w within 2e-2 m,
-    surf factors within max(5, 3 %), map surf points within max(10, 2 %);
+    port's ``mapping_step``: t_w within 1e-3 m (measured within 5e-7 m),
+    and the JAX test's count bounds, surf factors within max(5, 3 %), map
+    surf points within max(10, 2 %);
     against the JAX package's ``sharded_mapping_step`` on a mesh of the same
     n: t_w within 2e-2 m and the same count bounds, overflow counters
     equal; every rank's pose bitwise equal.  The gap to the JAX step is the
@@ -75,7 +76,11 @@ CFG = MappingConfig(
     stack_surf_capacity=2048,
     knn_tile=1024,
 )
-T_SINGLE = T_JAX = 2e-2
+# the sharded step against the port's own single-device step: within 5e-7 m
+# on the CPU (the sums in another order), held to 1e-3; against the jitted
+# JAX step, the reference's float32 gate flips (module docstring)
+T_SINGLE = 1e-3
+T_JAX = 2e-2
 
 
 def _jax_cfg(cfg):

@@ -95,3 +95,81 @@ def test_simulate_scan_copy_is_bitwise_identical():
                             n_azimuth=400, noise=0.01, seed=7)
     assert pj.dtype == pt.dtype and pj.shape == pt.shape
     np.testing.assert_array_equal(pt, pj)
+
+
+def _revisit_rings(seed=12, R=3, H=96):
+    """tests/test_voxel.py:135-175's rings: a slow walk round a circle that
+    returns to its start region (a revisited voxel), masked slots among."""
+    rng = np.random.default_rng(seed)
+    t = np.linspace(0, 2 * np.pi, H, dtype=np.float32)
+    xyz = np.zeros((R, H, 3), np.float32)
+    for r in range(R):
+        xyz[r, :, 0] = 3.0 * np.cos(t) + 0.01 * rng.normal(size=H)
+        xyz[r, :, 1] = 3.0 * np.sin(t) + 0.01 * rng.normal(size=H)
+        xyz[r, :, 2] = 0.1 * r
+    rel = rng.uniform(0, 1, (R, H)).astype(np.float32)
+    mask = rng.random((R, H)) < 0.85
+    return xyz, rel, mask
+
+
+def _monotonic_rings(seed=13, R=2, H=128):
+    """tests/test_voxel.py's no-revisit rings: strictly increasing x."""
+    rng = np.random.default_rng(seed)
+    xyz = np.zeros((R, H, 3), np.float32)
+    xyz[:, :, 0] = np.cumsum(rng.uniform(0.05, 0.2, (R, H)), axis=1)
+    xyz[:, :, 1] = rng.uniform(0, 0.4, (R, H))
+    rel = rng.uniform(0, 1, (R, H)).astype(np.float32)
+    mask = rng.random((R, H)) < 0.9
+    return xyz, rel, mask
+
+
+@pytest.mark.parametrize("case,leaf,capacity", [
+    ("revisit", 0.5, 64),
+    ("revisit", 0.5, 8),      # every ring overflows: the stride decimation
+    ("monotonic", 0.5, 128),
+    ("random", 0.8, 64),      # runs of one slot, masked rings and gaps
+])
+def test_voxel_downsample_rings_runs_matches_jax(case, leaf, capacity):
+    """The "runs" less-flat downsample against the JAX package's on the
+    inputs of tests/test_voxel.py:135-175: masks equal, xyz and rel within
+    1e-6."""
+    if case == "revisit":
+        xyz, rel, mask = _revisit_rings()
+    elif case == "monotonic":
+        xyz, rel, mask = _monotonic_rings()
+    else:
+        rng = np.random.default_rng(2)
+        xyz = rng.uniform(-6, 6, (8, 200, 3)).astype(np.float32)
+        rel = rng.uniform(0, 8, (8, 200)).astype(np.float32)
+        mask = rng.random((8, 200)) < 0.7
+        mask[3] = False
+    j = jv.voxel_downsample_rings_runs(jnp.asarray(xyz), jnp.asarray(rel),
+                                       jnp.asarray(mask), leaf, capacity)
+    t = tv.voxel_downsample_rings_runs(*_t(xyz, rel, mask), leaf, capacity)
+    jm = np.asarray(j[2])
+    assert jm.sum() > 10
+    np.testing.assert_array_equal(t[2].numpy(), jm)
+    np.testing.assert_allclose(t[0].numpy(), np.asarray(j[0]), rtol=0,
+                               atol=1e-6)
+    np.testing.assert_allclose(t[1].numpy(), np.asarray(j[1]), rtol=0,
+                               atol=1e-6)
+
+
+def test_voxel_rings_runs_equals_exact_when_no_revisit():
+    """Twin of tests/test_voxel.py's property on the port's side: on rings
+    that never re-enter a voxel, the runs mode yields the exact mode's voxel
+    set and centroids (exact is key-ordered, runs azimuth-ordered)."""
+    xyz, rel, mask = _monotonic_rings()
+    ex, er, em = (a.numpy() for a in tv.voxel_downsample_rings(
+        *_t(xyz, rel, mask), 0.5, 128))
+    ux, ur, um = (a.numpy() for a in tv.voxel_downsample_rings_runs(
+        *_t(xyz, rel, mask), 0.5, 128))
+    for r in range(xyz.shape[0]):
+        n_e, n_u = em[r].sum(), um[r].sum()
+        assert n_e == n_u > 10
+        assert not em[r][n_e:].any() and not um[r][n_u:].any()
+        se = sorted(map(tuple, np.round(ex[r][:n_e], 4)))
+        su = sorted(map(tuple, np.round(ux[r][:n_u], 4)))
+        assert se == su
+        assert sorted(np.round(er[r][:n_e], 4)) == sorted(np.round(ur[r][:n_u],
+                                                                   4))
