@@ -8,7 +8,8 @@ in order (each phase prints one line of numbers; any failure is an uncaught
 exception and a non-zero exit):
 
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: nvcc both kernels (seconds, ptxas resource lines);
+  2. build: nvcc the three kernels, all at once (seconds, ptxas resource
+     lines);
   3. knn5 vs its plain PyTorch version at the mapping stage's shapes; at
      the live counts the stage hands over, timed per call and per launch
      on the device, beside the least time the card could take (its bound);
@@ -19,6 +20,15 @@ exception and a non-zero exit):
      5, 158), timed per call and per launch on the device, beside its
      bound; then 4 and 8 lanes of R = 10, K = 163 under ``torch.vmap`` (one
      launch of R = 40 and 80), equal to 4 and 8 single launches;
+ 3c. segment_sum (csrc/segsum.cu, the ordered voxel, store and refinement
+     sums; no Pallas twin): phase 5's 12 frames staged and a refinement of
+     their keyframes with every call recorded, then at each call site's
+     shapes the kernel bit for bit its plain version on the CPU, timed per
+     call and per launch on the device beside its bound, the plain version
+     on the card (index_add_ with atomics) and three library calls
+     (index_add_, with atomics and deterministic, and segment_reduce); 4
+     calls of each site as lanes of one launch under ``torch.vmap``; the
+     longest live segment of each site;
   5. the flagship pipeline (HDL64_KITTI, full widths) over 12 synthetic
      frames on the card: kernel launch counts, finite poses, every mapped
      position within 5 cm of the JAX package's, per-stage device ms and
@@ -40,8 +50,8 @@ exception and a non-zero exit):
      a CUDA graph, one replay per frame) over the 12 frames of phase 5:
      warm-up and capture seconds, the kernels one traced replay runs against
      the launches the wrappers counted at capture, mapped positions against
-     the JAX package's and against phase 5's own (3 cm: both runs add with
-     atomics), the ``fused_step`` stream ms and frames/s; and per-call
+     the JAX package's and against phase 5's own (bitwise: the sums are
+     ordered), the ``fused_step`` stream ms and frames/s; and per-call
      device ms of the two map-store merges and of the registration that
      runs both and selects;
  10. the chunked replay from a KITTI folder: the 12 frames are written as
@@ -49,27 +59,30 @@ exception and a non-zero exit):
      ground truth) into a temporary directory, then ``run_kitti`` replays
      it with ``chunk_size=4`` and with ``fused=True`` (reader thread and
      pose writer on the clock): 12 rows each, row 0 the identity, the two
-     files within 3 cm, ATE against the ground truth under 0.30 m;
+     files equal, the fused file within its digits of phase 9, ATE against
+     the ground truth under 0.30 m;
  11. checkpoint and export, under deterministic sums: a staged run saved
      after frame 6 and loaded into a fresh Pipeline gives the uninterrupted
-     run's frame 7 within 1e-5, and ``export_map`` writes two PLY files with
-     the stores' live counts;
- 12. repeatability, under deterministic sums
-     (``torch.use_deterministic_algorithms``: ``index_add_`` without
-     atomics): the 12 frames staged, fused per frame and chunked, the three
-     trajectories within 1 mm of each other, with the frames/s the ordered
-     sums cost;
+     run's frame 7 within 1e-5, the uninterrupted run phase 5's first 8
+     frames bitwise, and ``export_map`` writes two PLY files with the
+     stores' live counts;
+ 12. repeatability: the 12 frames staged, fused per frame and chunked under
+     ``torch.use_deterministic_algorithms`` and with PyTorch's default
+     settings (staged twice), every run bitwise equal to every other and
+     to phases 5 and 9, with the frames/s and ``fused_step`` ms of both
+     settings;
  13. the batched lanes (models/batch.py): B flagship sequences per step,
      lane b the synthetic run of ``World.urban(seed=b)`` (lane 0 is phase
      5's), one graph replay per batched frame, at B = 1, 4 and 8 over 8
      frames, then chunks of 4 frames over 4 lanes: lane 0 within 5 cm of
      the JAX package's positions, every lane within 3 cm of its own fused
-     single-lane run, the chunked run within 3 cm of the per-frame one, and
+     single-lane run, the chunked run bitwise the per-frame one, and
      under deterministic sums 2 lanes over 6 frames, run again in reverse
      order, within 1 mm of the first order (a lane's result must not depend
      on its place); capture seconds, stream ms per batched frame,
-     aggregate frames/s, kernels per traced replay (4 knn5 and 6 vote
-     kernels whatever B is), the busy share of a traced replay and peak
+     aggregate frames/s, kernels per traced replay (4 knn5, 6 vote and 7
+     segment_sum kernels whatever B is), the busy share of a traced replay
+     and peak
      memory; under deterministic sums each batched step is also held to
      the same lane stepped alone from the same carried state (2 mm for
      translations, 1e-4 for quaternions);
@@ -81,7 +94,8 @@ exception and a non-zero exit):
      kernels of one call traced through ``StageTimers.profiler_trace``,
      refined poses within 1e-4 of the same call on the CPU in float64
      (in float32 rounding decides the landmark fits: reported), two calls
-     bitwise equal under deterministic sums; keyframes corrupted after the
+     bitwise equal with PyTorch's default settings and under deterministic
+     ones; keyframes corrupted after the
      fact recovered by apply=True, the next staged and fused frames within
      1.5 m of the refined pose; the HTML viewer written from the card;
  15. the multi-device paths (light_loam_tpu_torch/parallel/), each rank a
@@ -98,8 +112,9 @@ exception and a non-zero exit):
      4 lanes per rank of phase 13's frames through the lane-sharded batched
      step against the same lanes unsharded (3 cm), phase 14's window split
      over the ranks in float64 against the single call (1e-9), and on
-     every rank one knn5 and one compat_votes call at the rank's shapes
-     against their plain versions; ms per sharded step, collectives per
+     every rank one knn5, one compat_votes and one segment_sum call at the
+     rank's shapes against their plain versions; ms per sharded step,
+     collectives per
      step and their bytes, aggregate lane frames/s, each rank's peak
      memory and launches.  Over NCCL every sharded step is one replay of
      the rank's captured step (``ShardedStepGraph``, collectives inside):
@@ -114,17 +129,19 @@ exception and a non-zero exit):
      own references;
  16. the "runs" less-flat downsample (``scan.lessflat_mode="runs"``) over
      phase 5's 12 frames, staged and fused: mapped positions within 5 cm of
-     the JAX package's runs-mode run, staged and fused within 3 cm, frame
+     the JAX package's runs-mode run, staged and fused bitwise equal, frame
      0's less-flat live count in both modes, stream ms per stage.
 
 Launch counts: each kernel's wrapper counts its own launches, and every
 staged phase checks them against the counts derived from its config.  A
 graph replay goes past the wrappers: the fused phases check that the
-wrappers counted nothing, and report replays times the launches counted at
-capture, which a traced replay confirms kernel by kernel.
+wrappers counted nothing but the host loop's keyframe stack (one
+segment_sum a frame, outside the graph), and report replays times the
+launches counted at capture, which a traced replay confirms kernel by
+kernel.
 
 The last three lines are a JSON object with each kernel's numbers
-(``launches`` from the wrappers over the staged phases, ``graph_launches``
+(``launches`` from the wrappers over the main-path phases, ``graph_launches``
 through replays, ``lane_launches`` through phase 13's, ``sharded_launches``
 from phase 15's ranks' wrappers, ``sharded_graph_launches`` through their
 captured steps' replays and ``sharded_lane_launches`` through their lane
@@ -157,6 +174,7 @@ from light_loam_tpu_torch.core.frame import PointCloud
 from light_loam_tpu_torch.io.evaluation import ate_rmse
 from light_loam_tpu_torch.io.kitti import gt_to_lidar_frame, read_gt_poses
 from light_loam_tpu_torch.models import batch, fused, mapping
+from light_loam_tpu_torch.models import refine as refine_module
 from light_loam_tpu_torch.models import pipeline as pipeline_module
 from light_loam_tpu_torch.models.mapping import MappingState
 from light_loam_tpu_torch.models.odometry import OdometryState
@@ -178,7 +196,13 @@ from light_loam_tpu_torch.ops.cuda_vote import (
     compat_votes,
     compat_votes_plain,
 )
-from light_loam_tpu_torch.ops import graphvote
+from light_loam_tpu_torch.ops.cuda_segsum import (
+    SEGSUM,
+    segment_sum,
+    segment_sum_plain,
+)
+from light_loam_tpu_torch.ops import graphvote, sorted_store
+from light_loam_tpu_torch.ops import voxel as voxel_module
 from light_loam_tpu_torch.ops.features import extract_features
 from light_loam_tpu_torch.ops.graphvote import full_graph_vote
 from light_loam_tpu_torch.ops.knn import (
@@ -314,19 +338,26 @@ JAX_RUNS_MAPPED_POSITIONS = np.array([
     [11.003267288208008, 0.23232193291187286, 0.005121775437146425],
 ])
 POSITION_TOL_M = 0.05
-# Phases 9 and 10 compare two runs on the same card.  The fused and the
-# chunked frame run the staged path's own stage functions, so the runs differ
-# only by the order of the atomic adds in the voxel sums (index_add_,
-# ops/voxel.py); but that order changes from run to run, a centroid's last
-# bit with it, and through the float32 plane-fit gates the trajectory: within
-# 12 frames two runs are up to a centimetre apart, two staged runs as much as
-# a staged and a fused one.  So runs with atomic sums are held to 3 cm (the
-# JAX package's own band between its chunked and per-frame programs,
-# tests/test_fused.py).  With the sums ordered (phases 11 and 12) the runs
-# measured bitwise equal, and are held to 1 mm and, one frame from one
-# state, to 1e-5.
-SAME_CARD_TOL_M = 0.03
+# Runs on the same card.  The fused and the chunked frame run the staged
+# path's own stage functions, and the voxel, store and refinement sums are
+# ordered (ops/cuda_segsum.py), so two runs of the same frames, staged, fused
+# or chunked, with PyTorch's default settings or deterministic ones, are
+# held to each other bitwise (SAME_CARD_TOL_M).  With index_add_'s atomic
+# sums the order of the adds changed from run to run, a centroid's last bit
+# with it, and through the float32 plane-fit gates the trajectory: two runs
+# were up to 11.41 mm apart over 12 frames and were held to 3 cm (PERF.md).
+# A batched lane is not the single lane's computation (vmap's batched
+# reductions round differently, and the plane-fit gates grow that to mm), so
+# lanes are held to their single-lane runs at LANE_TOL_M, the JAX package's
+# own band between its chunked and per-frame programs (tests/test_fused.py),
+# and under deterministic sums one lane's positions to the same lanes in
+# reverse order at REPEATABLE_TOL_M.  A pose file holds 7 significant digits
+# (%.6e: at most 6e-6 m on this run's 12 m), so a file against a run is held
+# to POSE_FILE_TOL_M.
+SAME_CARD_TOL_M = 0.0
+LANE_TOL_M = 0.03
 REPEATABLE_TOL_M = 1e-3
+POSE_FILE_TOL_M = 1e-5
 RESUME_TOL = 1e-5
 KITTI_CHUNK = 4
 KITTI_ATE_TOL_M = 0.30
@@ -752,6 +783,189 @@ def phase_vote_lanes(dev) -> dict:
     return out
 
 
+# Phase 3c: segment_sum at the main path's shapes, B lanes in one launch
+SEGSUM_LANES = 4
+# the modules that call segment_sum, by the name they import it under
+SEGSUM_CALLERS = (voxel_module, sorted_store, refine_module)
+
+
+class SegsumRecorder:
+    """While active, every call of ``segment_sum`` by the port's modules is
+    recorded by call site (the caller and its caller, and the shapes): the
+    inputs of the newest SEGSUM_LANES calls, cloned, and the longest live
+    segment over all calls, counted on the card and read once at the end."""
+
+    def __enter__(self):
+        self.calls, self.longest = {}, {}
+        for module in SEGSUM_CALLERS:
+            setattr(module, "segment_sum", self)
+        return self
+
+    def __exit__(self, *exc):
+        for module in SEGSUM_CALLERS:
+            setattr(module, "segment_sum", segment_sum)
+
+    def __call__(self, values, seg, S):
+        frame = sys._getframe(1)
+        site = (f"{frame.f_back.f_code.co_name}/{frame.f_code.co_name}",
+                *values.shape, S, str(values.dtype).split(".")[-1])
+        calls = self.calls.setdefault(site, [])
+        calls.append((values.clone(), seg.clone(), S))
+        del calls[:-SEGSUM_LANES]
+        rows = torch.zeros(S + 1, dtype=torch.int64, device=seg.device
+                           ).index_add_(0, seg, torch.ones_like(seg))[:S].max()
+        old = self.longest.get(site)
+        self.longest[site] = rows if old is None else torch.maximum(old, rows)
+        return segment_sum(values, seg, S)
+
+
+def _segsum_err(out, values, seg, S) -> float:
+    """max |kernel - plain| with the plain version on the CPU copies of the
+    inputs, where ``index_add`` adds in row order, the kernel's own order:
+    0 means bit for bit (signed zeros aside)."""
+    want = segment_sum_plain(values.cpu(), seg.cpu(), S)
+    got = out.cpu()
+    if torch.equal(got, want):
+        return 0.0
+    return float((got - want).abs().nan_to_num(float("inf")).max())
+
+
+def segsum_bound(values, seg, S) -> tuple:
+    """segment_sum reads each live row (seg < S: the dump rows are neither
+    read nor needed) with its slot id, and writes every slot; one add per
+    value read, against bytes over 3.35 TB/s."""
+    width = values.shape[-1] * values.element_size()
+    live = int((seg < S).sum())
+    lanes = values.shape[0] if values.dim() == 3 else 1
+    return _bound(live * values.shape[-1],
+                  live * (width + 8) + lanes * S * width)
+
+
+def phase_segsum(dev) -> dict:
+    """Phase 3c: phase 5's 12 frames staged and a refinement of their
+    keyframes, with every segment_sum call recorded; then at each call
+    site's shapes the kernel against its plain version (on the CPU copies:
+    bit for bit), device ms, ms per call, the plain version on the card
+    (index_add_ with atomics), the bound and the library calls on the same
+    inputs (index_add_ into a zeroed buffer, with atomics and under
+    deterministic algorithms, and torch.segment_reduce over the slots'
+    offsets, given and found by torch.searchsorted); then the newest SEGSUM_LANES calls of each site as lanes of
+    one launch under ``torch.vmap``, each lane bit for bit its plain
+    version and its single launch.  Also the longest live segment of each
+    site over the 12 frames."""
+    cfg = PROFILES["hdl64"]
+    frames = list(synthetic_frames(N_FRAMES, cfg, n_azimuth=1800, speed=1.0,
+                                   seed=0))
+    pipe = Pipeline(cfg, device="cuda")
+    with SegsumRecorder() as rec:
+        for _, xyz, mask in frames:
+            pipe.process_frame(xyz, mask)
+        pipe.refine_recent_keyframes(n_keyframes=REFINE_WINDOWS[-1],
+                                     n_landmarks=REFINE_LANDMARKS,
+                                     n_iterations=REFINE_ITERATIONS)
+    longest = {site: int(n) for site, n in rec.longest.items()}
+    out = {}
+    for site, calls in rec.calls.items():
+        values, seg, S = calls[-1]
+        got = segment_sum(values, seg, S)
+        torch.cuda.synchronize()
+        err = _segsum_err(got, values, seg, S)
+        if err != 0.0:
+            raise AssertionError(f"segment_sum {site}: {err:.3g} from the "
+                                 "plain version")
+        atomic_gap = float((segment_sum_plain(values, seg, S) - got).abs().max())
+        kernel = functools.partial(segment_sum, values, seg, S)
+        plain = functools.partial(segment_sum_plain, values, seg, S)
+        buf = values.new_zeros((S + 1, values.shape[1]))
+        slots = torch.arange(S + 1, device=dev)
+        offsets = torch.searchsorted(seg, slots)
+        reduce = functools.partial(torch.segment_reduce, values, "sum",
+                                   offsets=offsets, axis=0, unsafe=True)
+        reduce_gap = float((reduce() - got).abs().max())
+
+        def search_and_reduce():
+            return torch.segment_reduce(
+                values, "sum", offsets=torch.searchsorted(seg, slots), axis=0,
+                unsafe=True)
+
+        v = out[site] = dict(
+            site=site[0], N=site[1], C=site[2], S=S, dtype=site[4],
+            live_rows=int((seg < S).sum()), longest_live_segment=longest[site],
+            max_abs_err=err, atomic_gap=atomic_gap, segment_reduce_gap=reduce_gap,
+            ms=_median_ms(kernel, 20), plain_ms=_median_ms(plain, 20),
+            device_ms=_device_ms(kernel, 50),
+            plain_device_ms=_device_ms(plain, 50),
+            library_ms={
+                "index_add_": _device_ms(
+                    lambda: buf.index_add_(0, seg, values), 50),
+                "segment_reduce": _device_ms(reduce, 50),
+                "searchsorted + segment_reduce": _device_ms(
+                    search_and_reduce, 50)})
+        with deterministic_sums():
+            v["library_ms"]["index_add_ deterministic"] = _device_ms(
+                lambda: buf.index_add_(0, seg, values), 20)
+        v["bound_ms"], v["bound_by"] = segsum_bound(values, seg, S)
+        if len(calls) == SEGSUM_LANES:
+            v["lanes"] = _segsum_lanes(site, calls)
+    for v in out.values():
+        lanes = v.get("lanes")
+        lib = v["library_ms"]
+        print(f"[3c segment_sum] {v['site']} N={v['N']} C={v['C']} "
+              f"S={v['S']} {v['dtype']}: live rows {v['live_rows']}, longest "
+              f"live segment {v['longest_live_segment']} (12 frames) | "
+              f"max_abs_err {v['max_abs_err']:.3g} (CPU plain), "
+              f"{v['atomic_gap']:.3g} from index_add_ on the card | kernel "
+              f"{v['device_ms']:.4f} ms per launch on the device, "
+              f"{v['ms']:.4f} per call; plain {v['plain_device_ms']:.4f} on "
+              f"the device, {v['plain_ms']:.4f} per call | bound "
+              f"{v['bound_ms']:.5f} ms ({v['bound_by']}), "
+              f"{v['bound_ms'] / v['device_ms']:.1%} of the bound | library: "
+              + ", ".join(f"{name} {ms:.4f}" for name, ms in lib.items())
+              + f" (segment_reduce {v['segment_reduce_gap']:.3g} from the "
+              "kernel)"
+              + (f" | {SEGSUM_LANES} lanes in one launch: max_abs_err "
+                 f"{lanes['max_abs_err']:.3g}, {lanes['device_ms']:.4f} ms "
+                 f"per launch against {lanes['singles_device_ms']:.4f} for "
+                 f"{SEGSUM_LANES} single launches, bound "
+                 f"{lanes['bound_ms']:.5f} ms, {lanes['bound_ms'] / lanes['device_ms']:.1%}"
+                 if lanes else ""))
+    print(f"[3c segment_sum] longest live segment over phase 5's 12 frames: "
+          f"{max(longest.values())} rows ("
+          + ", ".join(f"{site[0]} {n}" for site, n in longest.items()) + ")")
+    return out
+
+
+def _segsum_lanes(site, calls) -> dict:
+    """One site's newest calls as lanes of one launch under ``torch.vmap``:
+    each lane bit for bit its plain version and its single launch."""
+    values = torch.stack([c[0] for c in calls])
+    seg = torch.stack([c[1] for c in calls])
+    S = calls[0][2]
+    lanes = functools.partial(torch.vmap(segment_sum, in_dims=(0, 0, None)),
+                              values, seg, S)
+    got = lanes()
+    torch.cuda.synchronize()
+    err = 0.0
+    for b in range(len(calls)):
+        err = max(err, _segsum_err(got[b], values[b], seg[b], S))
+        if not torch.equal(got[b], segment_sum(values[b], seg[b], S)):
+            raise AssertionError(f"segment_sum {site}: lane {b} differs from "
+                                 "its single launch")
+    if err != 0.0:
+        raise AssertionError(f"segment_sum {site} lanes: {err:.3g} from the "
+                             "plain version")
+
+    def singles():
+        for b in range(len(calls)):
+            segment_sum(values[b], seg[b], S)
+
+    v = dict(B=len(calls), max_abs_err=err, ms=_median_ms(lanes, 20),
+             device_ms=_device_ms(lanes, 50),
+             singles_device_ms=_device_ms(singles, 20))
+    v["bound_ms"], v["bound_by"] = segsum_bound(values, seg, S)
+    return v
+
+
 def mapping_vote_config():
     """The flagship profile with the mapping-stage vote on from the third
     mapped frame (the profile itself keeps it off, as the reference does)."""
@@ -792,23 +1006,47 @@ def runs_config():
         base, scan=dataclasses.replace(base.scan, lessflat_mode="runs"))
 
 
-def expected_launches(cfg, n_frames: int, n_mapped: int) -> dict:
+def expected_launches(cfg, n_frames: int, n_mapped: int,
+                      keyframes=None) -> dict:
     """Launches a run makes, from its config.  compat_votes: one per
     odometry outer iteration for each of the plane and corner votes in
     "simple" mode, and one per mapping outer iteration in mapping "simple"
     mode (all run before their gates open too; "full" launches none).
-    knn5: a corner and a surf 5-NN per mapping outer iteration."""
+    knn5: a corner and a surf 5-NN per mapping outer iteration.
+    segment_sum: the less-flat voxel sums of every frame in "exact" mode;
+    per mapped frame the two stack downsamples and, for each store, the
+    full re-sort and (but in "resort" mode) the sorted merge's reduce; and
+    the keyframe stack the host loop downsamples after each mapped frame
+    (``keyframes``, n_mapped unless given: a graph replay holds none)."""
     o, m = cfg.odometry, cfg.mapping
     simple = (o.plane_vote_mode == "simple") + (o.corner_vote_mode == "simple")
     votes = (simple * o.outer_iterations * n_frames
              + (m.vote_mode == "simple") * m.outer_iterations * n_mapped)
-    return {"knn.cu": 2 * m.outer_iterations * n_mapped, "vote.cu": votes}
+    per_store = 1 if m.map_store_mode == "resort" else 2
+    sums = ((cfg.scan.lessflat_mode == "exact") * n_frames
+            + (2 + 2 * per_store) * n_mapped
+            + (n_mapped if keyframes is None else keyframes))
+    return {"knn.cu": 2 * m.outer_iterations * n_mapped, "vote.cu": votes,
+            "segsum.cu": sums}
 
 
-# the device functions of csrc/knn.cu and csrc/vote.cu that one launch by
-# the wrapper starts once (knn5 also starts its merge kernel once)
+def replay_launches(cfg) -> dict:
+    """Launches one replay of the fused (or batched) frame makes: one frame,
+    mapped, without the host loop's keyframe stack."""
+    return expected_launches(cfg, 1, 1, keyframes=0)
+
+
+def keyframe_launches(n: int) -> dict:
+    """Launches the host loop makes around ``n`` fused frames: each frame's
+    keyframe stack, one voxel downsample, outside the graph."""
+    return {"knn.cu": 0, "vote.cu": 0, "segsum.cu": n}
+
+
+# the device functions of the csrc/ kernels that one launch by the wrapper
+# starts once (knn5 also starts its merge kernel once)
 KERNEL_FUNCTIONS = {"knn.cu": "knn5_segment_kernel",
-                    "vote.cu": "compat_votes_kernel"}
+                    "vote.cu": "compat_votes_kernel",
+                    "segsum.cu": "segment_sum_kernel"}
 
 
 def replay_kernel_counts(graph) -> tuple:
@@ -880,8 +1118,12 @@ def phase_pipeline(tag, cfg, n_frames, jax_positions, kernels) -> dict:
                       if graph else nothing)
 
     n_mapped = sum(r.mapped for r in results)
-    want = expected_launches(cfg, n_frames, n_mapped)
-    eager_want, graph_want = (nothing, want) if graph else (want, nothing)
+    if graph:
+        eager_want = keyframe_launches(n_mapped)
+        graph_want = expected_launches(cfg, n_frames, n_mapped, keyframes=0)
+    else:
+        eager_want = expected_launches(cfg, n_frames, n_mapped)
+        graph_want = nothing
     if launches != eager_want or graph_launches != graph_want:
         raise AssertionError(
             f"launches counted by the wrappers {launches} != {eager_want}, or "
@@ -1024,7 +1266,7 @@ def phase_fused(kernels, staged) -> dict:
           f"{graph.warmup_seconds:.2f} s ({fused.WARMUP_PASSES} eager pass), "
           f"capture and instantiate {graph.capture_seconds:.2f} s, peak "
           f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    want = expected_launches(cfg, 1, 1)
+    want = replay_launches(cfg)
     traced, n_kernels, kernel_ms, traced_ms, top = replay_kernel_counts(graph)
     if graph.kernel_launches != want or traced != want:
         raise AssertionError(
@@ -1044,7 +1286,7 @@ def phase_fused(kernels, staged) -> dict:
           "time in " + ", ".join(
               f"{name[:48]} {ms:.2f} ms x{n}" for name, ms, n in top)
           + f" | max |fused - "
-          f"staged (phase 5)| {gap * 1e3:.4f} mm (both with atomic sums) | "
+          f"staged (phase 5)| {gap * 1e3:.4f} mm (limit 0: ordered sums) | "
           f"{p9['fps']:.2f} frames/s fused against {staged['fps']:.2f} staged")
     return p9
 
@@ -1111,7 +1353,8 @@ def write_kitti_sequence(root, frames, sequence="99") -> None:
 
 def phase_kitti(kernels, p5, p9) -> dict:
     """Phase 10: KITTI folder in, trajectory files out, chunked and fused
-    per frame; returns the launches both runs made through graph replays."""
+    per frame; returns the launches the wrappers counted and those both
+    runs made through graph replays."""
     cfg = PROFILES["hdl64"]
     frames = list(synthetic_frames(N_FRAMES, cfg, n_azimuth=1800, speed=1.0,
                                    seed=0))
@@ -1125,7 +1368,10 @@ def phase_kitti(kernels, p5, p9) -> dict:
           f"{graphs['chunked'].warmup_seconds:.2f} s, capture and instantiate "
           f"{graphs['chunked'].capture_seconds:.2f} s")
     launches, est, fps = {}, {}, {}
-    want = expected_launches(cfg, N_FRAMES, N_FRAMES)
+    want = expected_launches(cfg, N_FRAMES, N_FRAMES, keyframes=0)
+    # the fused Pipeline downsamples each frame's keyframe stack eagerly
+    wrappers = {"chunked": dict.fromkeys(want, 0),
+                "fused": keyframe_launches(N_FRAMES)}
     with tempfile.TemporaryDirectory() as root:
         write_kitti_sequence(root, frames)
         gt_cam = read_gt_poses(os.path.join(root, "results", "99.txt"))
@@ -1143,11 +1389,12 @@ def phase_kitti(kernels, p5, p9) -> dict:
             replays = graph.replays - replays
             launches[name] = {src: n * replays
                               for src, n in graph.kernel_launches.items()}
-            if launches[name] != want or any(k.launches for k in kernels):
+            counted = {k.source.name: k.launches for k in kernels}
+            if launches[name] != want or counted != wrappers[name]:
                 raise AssertionError(
                     f"{name}: {replays} replays made {launches[name]} "
-                    f"launches, not {want}; or the wrappers counted some: "
-                    f"{[k.launches for k in kernels]}")
+                    f"launches, not {want}; or the wrappers counted "
+                    f"{counted}, not {wrappers[name]}")
             est[name] = read_gt_poses(result)
     R, t = gt_to_lidar_frame(gt_cam)
     gt = np.concatenate([R, t[:, :, None]], axis=2)
@@ -1163,7 +1410,7 @@ def phase_kitti(kernels, p5, p9) -> dict:
     gap = _check_gap("chunked vs fused file", est["chunked"][:, :, 3],
                      est["fused"][:, :, 3])
     gap9 = _check_gap("fused file vs phase 9", est["fused"][:, :, 3],
-                      p9["positions"])
+                      p9["positions"], POSE_FILE_TOL_M)
     print(f"[10 kitti] {N_FRAMES}-frame KITTI folder -> pose files | chunked "
           f"(K={KITTI_CHUNK}) {fps['chunked']:.2f} frames/s, fused per frame "
           f"{fps['fused']:.2f} frames/s (host wall over all {N_FRAMES} "
@@ -1171,19 +1418,23 @@ def phase_kitti(kernels, p5, p9) -> dict:
           f"before) against {p9['fps']:.2f} (phase 9) and {p5['fps']:.2f} "
           f"(phase 5, staged) | ATE chunked {ate['chunked']:.4f} m fused "
           f"{ate['fused']:.4f} m | max |chunked - fused| {gap * 1e3:.4f} mm, "
-          f"|fused - fused (phase 9)| {gap9 * 1e3:.4f} mm (atomic sums) "
-          f"| launches through graph replays {launches}, none counted by the "
-          f"wrappers | peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
-    return {name: sum(run[name] for run in launches.values())
-            for name in launches["chunked"]}
+          f"|fused - fused (phase 9)| {gap9 * 1e3:.4f} mm (limit "
+          f"{POSE_FILE_TOL_M * 1e3:g}, the file's digits) "
+          f"| launches through graph replays {launches}, by the wrappers "
+          f"(the fused run's keyframe stacks) {wrappers['fused']} | peak "
+          f"memory {torch.cuda.max_memory_allocated() / 2**20:.0f} MiB")
+    return dict(launches=wrappers["fused"], graph_launches={
+        name: sum(run[name] for run in launches.values())
+        for name in launches["chunked"]})
 
 
 @contextlib.contextmanager
 def deterministic_sums():
-    """``index_add_`` without atomics (other ops that have no deterministic
-    version only warn).  A graph holds the kernels chosen at its capture, so
-    none crosses the border."""
+    """PyTorch's deterministic algorithms (ops that have no deterministic
+    version only warn).  The port's float sums are ordered anyway; what the
+    setting still changes is which kernels the exact ones (integer sums,
+    maxima, one-writer scatters) run.  A graph holds the kernels chosen at
+    its capture, so none crosses the border."""
     fused.clear_graphs()
     sharded.clear_graphs()
     torch.use_deterministic_algorithms(True, warn_only=True)
@@ -1198,8 +1449,8 @@ def deterministic_sums():
 def phase_checkpoint(kernels, p5) -> dict:
     """Phase 11, under deterministic sums: save after frame 6, resume in a
     fresh Pipeline, compare frame 7; export the map as PLY.  The
-    uninterrupted run repeats phase 5's first 8 frames: the gap to that run,
-    which added with atomics, is printed."""
+    uninterrupted run repeats phase 5's first 8 frames, with PyTorch's
+    default settings: held to that run bitwise."""
     cfg = PROFILES["hdl64"]
     frames = list(synthetic_frames(8, cfg, n_azimuth=1800, speed=1.0, seed=0))
     for k in kernels:
@@ -1247,42 +1498,67 @@ def phase_checkpoint(kernels, p5) -> dict:
           f"({size / 2**20:.1f} MiB, {save_s:.2f} s), loaded into a fresh "
           f"Pipeline ({load_s:.2f} s) | frame 7 resumed vs uninterrupted, max "
           "abs: " + " ".join(f"{n} {g:.2e}" for n, g in gaps.items())
-          + f" (limit {RESUME_TOL}) | max |staged - staged (phase 5, atomic "
-          f"sums)| over 8 frames {rerun * 1e3:.4f} mm | PLY points {counts} | "
+          + f" (limit {RESUME_TOL}) | max |staged - staged (phase 5, default "
+          f"settings)| over 8 frames {rerun * 1e3:.4f} mm (limit 0) | PLY "
+          f"points {counts} | "
           f"launches {launches}")
     return launches
 
 
-def phase_repeatable(kernels, p5, p9) -> tuple:
-    """Phase 12, under deterministic sums: the 12 frames staged, fused per
-    frame and chunked; the three must agree within 1 mm.  Returns the staged
-    and the fused run."""
-    cfg = PROFILES["hdl64"]
-    staged = phase_pipeline("12 deterministic, staged", cfg, N_FRAMES,
+def _same_frames(cfg, tag, kernels) -> dict:
+    """Phase 5's 12 frames staged, fused per frame and chunked under
+    ``cfg``: each run's mapped positions and the staged and fused runs'
+    numbers."""
+    staged = phase_pipeline(f"12 {tag}, staged", cfg, N_FRAMES,
                             JAX_MAPPED_POSITIONS, kernels)
     per_frame = phase_pipeline(
-        "12 deterministic, fused", dataclasses.replace(cfg, fused_step=True),
+        f"12 {tag}, fused", dataclasses.replace(cfg, fused_step=True),
         N_FRAMES, JAX_MAPPED_POSITIONS, kernels)
     frames = synthetic_frames(N_FRAMES, cfg, n_azimuth=1800, speed=1.0, seed=0)
     _, _, outs = fused.run_chunked(((xyz, mask) for _, xyz, mask in frames),
                                    cfg, chunk_size=KITTI_CHUNK)
-    gaps = {
-        "fused - staged": _check_gap(
-            "deterministic fused vs staged", per_frame["positions"],
-            staged["positions"], REPEATABLE_TOL_M),
-        "chunked - fused": _check_gap(
-            "deterministic chunked vs fused", outs.map_t,
-            per_frame["positions"], REPEATABLE_TOL_M),
+    return dict(staged=staged, fused=per_frame, chunked=outs.map_t)
+
+
+def phase_repeatable(kernels, p5, p9) -> tuple:
+    """Phase 12: the 12 frames staged, fused per frame and chunked, under
+    deterministic sums and with PyTorch's default settings (staged twice);
+    every run, phase 5's and phase 9's too, bitwise equal to every other.
+    Returns the runs of both settings and the default staged and fused
+    runs."""
+    cfg = PROFILES["hdl64"]
+    with deterministic_sums():
+        det = _same_frames(cfg, "deterministic", kernels)
+    default = _same_frames(cfg, "default settings", kernels)
+    again = phase_pipeline("12 default settings, staged again", cfg,
+                           N_FRAMES, JAX_MAPPED_POSITIONS, kernels)
+    base = default["staged"]["positions"]
+    runs = {
+        "staged again (default)": again["positions"],
+        "fused (default)": default["fused"]["positions"],
+        "chunked (default)": default["chunked"],
+        "phase 5 (staged, default)": p5["positions"],
+        "phase 9 (fused, default)": p9["positions"],
+        "staged (deterministic)": det["staged"]["positions"],
+        "fused (deterministic)": det["fused"]["positions"],
+        "chunked (deterministic)": det["chunked"],
     }
-    print("[12 deterministic] index_add_ without atomics | max gap, mm (limit "
-          f"{REPEATABLE_TOL_M * 1e3:g}): " + ", ".join(
-              f"|{n}| {g * 1e3:.6f}" for n, g in gaps.items())
-          + f" | frames/s staged {staged['fps']:.2f} (atomic sums, phase 5: "
-          f"{p5['fps']:.2f}), fused {per_frame['fps']:.2f} (phase 9: "
-          f"{p9['fps']:.2f}); fused_step "
-          f"{per_frame['stages']['fused_step']:.2f} ms (phase 9: "
-          f"{p9['stages']['fused_step']:.2f})")
-    return staged, per_frame
+    gaps = {name: _check_gap(f"phase 12 {name} vs staged (default)", pos,
+                             base)
+            for name, pos in runs.items()}
+    print("[12 repeatable] max |run - staged (default settings)|, mm (limit "
+          "0: bitwise): " + ", ".join(f"{n} {g * 1e3:.6f}"
+                                      for n, g in gaps.items())
+          + f" | frames/s staged default {default['staged']['fps']:.2f} and "
+          f"{again['fps']:.2f} (phase 5: {p5['fps']:.2f}), deterministic "
+          f"{det['staged']['fps']:.2f}; fused default "
+          f"{default['fused']['fps']:.2f} (phase 9: {p9['fps']:.2f}), "
+          f"deterministic {det['fused']['fps']:.2f} | fused_step ms default "
+          f"{default['fused']['stages']['fused_step']:.2f} (phase 9: "
+          f"{p9['stages']['fused_step']:.2f}), deterministic "
+          f"{det['fused']['stages']['fused_step']:.2f}")
+    return (det["staged"], det["fused"], default["staged"], again,
+            default["fused"])
 
 
 # Phase 13: lanes of the batched runs, frames per lane, and the chunked and
@@ -1376,7 +1652,7 @@ def batched_run(kernels, cfg, xyz, mask, keep_steps=False) -> dict:
     replays = graph.replays - replays
     peak = torch.cuda.max_memory_allocated() / 2**20
     traced, n_kernels, kernel_ms, traced_ms, top = replay_kernel_counts(graph)
-    want = expected_launches(cfg, 1, 1)
+    want = replay_launches(cfg)
     if graph.kernel_launches != want or traced != want:
         raise AssertionError(
             f"B={B}: one replay should launch {want} for all lanes: the "
@@ -1450,7 +1726,8 @@ def phase_lanes(kernels, p9) -> dict:
             f"B={B} lane 0 vs the JAX package's", run["positions"][0],
             JAX_MAPPED_POSITIONS[:LANE_FRAMES], POSITION_TOL_M)
         run["gap"] = max(_check_gap(f"B={B} lane {b} vs its fused run",
-                                    run["positions"][b], alone[b])
+                                    run["positions"][b], alone[b],
+                                    LANE_TOL_M)
                          for b in range(B))
         runs.append(run)
         print(f"[13 lanes] B={B}: graph warm-up {run['warmup_s']:.2f} s, "
@@ -1497,7 +1774,7 @@ def phase_lanes(kernels, p9) -> dict:
     # each batched step against the same step of the lane alone, from the
     # state the batched run carried into it (the batched reductions round
     # differently, and over frames the float32 plane-fit gates grow that to
-    # mm, so whole runs are held only to SAME_CARD_TOL_M); and the same
+    # mm, so whole runs are held only to LANE_TOL_M); and the same
     # lanes in reverse order must give each lane the same positions (its
     # place and its neighbours must not matter)
     with deterministic_sums():
@@ -1519,7 +1796,7 @@ def phase_lanes(kernels, p9) -> dict:
                             d_run["positions"][b], REPEATABLE_TOL_M)
                  for b in range(DETERMINISTIC_LANES))
     d_gap = max(_check_gap(f"deterministic lane {b} vs its fused run",
-                           d_run["positions"][b], d_alone[b])
+                           d_run["positions"][b], d_alone[b], LANE_TOL_M)
                 for b in range(DETERMINISTIC_LANES))
     for name in graph_launches:
         graph_launches[name] += (d_launches[name] + d_run["graph_launches"][name]
@@ -1553,8 +1830,9 @@ REFINE_REPS = 5
 # tests/test_refine.py:111-112.  In float32 the two devices' results are up
 # to 3.2 cm apart on these frames (41 of 512 landmark masks flip with the
 # rounding of the ill-conditioned plane fit), and 1.5e-4 from the same
-# landmarks; two calls on the card with atomic sums 8.5e-5 (an H100 80GB
-# HBM3 at 700 W, PERF.md)
+# landmarks; two calls on the card with index_add_'s atomic sums were
+# 8.5e-5 apart (an H100 80GB HBM3 at 700 W, PERF.md), with the ordered sums
+# they must be bitwise equal
 REFINE_CPU_TOL = 1e-4
 # recovery: the twin of tests/test_pipeline_guards.py's apply=True test
 RECOVERY_K, RECOVERY_SHIFT_M, RECOVERY_NEXT_M = 4, 0.12, 1.5
@@ -1629,7 +1907,7 @@ def phase_refine(kernels) -> dict:
     launches = {k.source.name: k.launches for k in kernels}
     replays = graph.replays - replays
     graph_launches = {n: c * replays for n, c in graph.kernel_launches.items()}
-    if any(launches.values()) or replays != REFINE_FRAMES:
+    if launches != keyframe_launches(REFINE_FRAMES) or replays != REFINE_FRAMES:
         failures.append(f"fused frames: wrappers counted {launches}, "
                         f"{replays} replays")
     if len(pipe._keyframes) != REFINE_FRAMES:
@@ -1725,13 +2003,18 @@ def phase_refine(kernels) -> dict:
                                n_keyframes=REFINE_WINDOWS[-1],
                                n_landmarks=REFINE_LANDMARKS,
                                n_iterations=REFINE_ITERATIONS)
-    atomic_gap = _pose_gap(call16(), call16())
+    first, second = call16(), call16()
+    default_gap = _pose_gap(first, second)
+    if not all(np.array_equal(x, y) for x, y in zip(first, second)):
+        failures.append(f"default settings: two calls differ by "
+                        f"{default_gap:.3e}")
     with deterministic_sums():
         a, b = call16(), call16()
     bitwise = all(np.array_equal(x, y) for x, y in zip(a, b))
     if not bitwise:
         failures.append(f"deterministic sums: two calls differ by "
                         f"{_pose_gap(a, b):.3e}")
+    det_gap = _pose_gap(first, a)
 
     # recovery, then the next staged and fused frames
     clean = pipe.mapped_positions().copy()
@@ -1788,9 +2071,9 @@ def phase_refine(kernels) -> dict:
         html = os.path.getsize(export_pipeline_html(
             pipe, os.path.join(tmp, "view.html")))
     print("[14 refine] " + " | ".join(parts)
-          + f" | {REFINE_WINDOWS[-1]} keyframes, two calls: atomic sums "
-          f"{atomic_gap:.3e} apart, deterministic sums bitwise equal "
-          f"{bitwise} | recovery (K = {RECOVERY_K}, {RECOVERY_K - 1} "
+          + f" | {REFINE_WINDOWS[-1]} keyframes, two calls: default settings "
+          f"{default_gap:.3e} apart, deterministic sums bitwise equal "
+          f"{bitwise}, the two settings {det_gap:.3e} apart | recovery (K = {RECOVERY_K}, {RECOVERY_K - 1} "
           f"keyframes shifted up to {RECOVERY_SHIFT_M} m): mean |error| per "
           f"axis {np.round(err_c, 5).tolist()} -> {np.round(err_r, 5).tolist()}"
           f" m; next staged frame {next_staged:.4f} m and fused frame "
@@ -2178,7 +2461,7 @@ def _rank_lanes(group, z, failures) -> dict:
     wall_ms = (time.perf_counter() - t1) * 1e3 / (K - 1)
     positions = gather_lanes(torch.stack(rows, 1), group).cpu().numpy()
     gap = float(np.linalg.norm(positions - z[f"lanes.ref{B}"], axis=-1).max())
-    if not np.isfinite(positions).all() or gap > SAME_CARD_TOL_M:
+    if not np.isfinite(positions).all() or gap > LANE_TOL_M:
         failures.append(f"lanes: {gap:.4f} m from the unsharded lanes")
     replays = graph.replays - replays
     return dict(B=B, wall_ms=wall_ms, gap=gap, capture_s=graph.capture_seconds,
@@ -2207,9 +2490,14 @@ def _rank_refine(group, z, failures) -> dict:
     return dict(keyframes=k, gap=gap)
 
 
-def _rank_kernels(knn_call, vote_call, failures) -> dict:
-    """One knn5 and one compat_votes call of this rank's runs, at the shapes
-    the rank gave them, held to their plain versions as phases 3-4 do."""
+def _rank_kernels(knn_call, vote_call, sums_call, failures) -> dict:
+    """One knn5, one compat_votes and one segment_sum call of this rank's
+    runs, at the shapes the rank gave them, held to their plain versions as
+    phases 3-4 and 3c do."""
+    values, seg, S = sums_call
+    sums_err = _segsum_err(segment_sum(values, seg, S), values, seg, S)
+    if sums_err != 0.0:
+        failures.append(f"segment_sum: {sums_err:.3g} from the plain version")
     query, ref, mask, counts = knn_call
     d_k, i_k = knn5(query, ref, mask, counts)
     d_p, i_p = knn5_plain(query, ref, mask, counts)
@@ -2224,7 +2512,8 @@ def _rank_kernels(knn_call, vote_call, failures) -> dict:
     return dict(knn_shape=[query.shape[0], ref.shape[0], qc, rc],
                 knn_err=knn_err, knn_swaps=swaps,
                 vote_shape=list(vote_call[0].shape[:2]),
-                vote_err=diff.max().item())
+                vote_err=diff.max().item(),
+                sums_shape=[*values.shape, S], sums_err=sums_err)
 
 
 def shard_rank(rank, backend, n, devices, init_method, npz_path, out_dir):
@@ -2232,7 +2521,7 @@ def shard_rank(rank, backend, n, devices, init_method, npz_path, out_dir):
     the free run and the vote run, its lanes, its keyframes of the
     refinement and one call of each kernel; writes its numbers and any
     failed check to ``out_dir``."""
-    for k in (KNN5, VOTE):
+    for k in (KNN5, VOTE, SEGSUM):
         if not k.library_path().exists():
             raise RuntimeError(f"rank {rank}: {k.source.name} was not built "
                                "by phase 2")
@@ -2268,6 +2557,7 @@ def shard_rank(rank, backend, n, devices, init_method, npz_path, out_dir):
                             "wrong")
         knn_call = _LastCall(mapping, "knn5")
         vote_call = _LastCall(graphvote, "compat_votes")
+        sums_call = _LastCall(voxel_module, "segment_sum")
         try:
             # on NCCL every step is a replay: both steps are captured before
             # the counts start (the wrappers count the warm-up and the
@@ -2279,7 +2569,7 @@ def shard_rank(rank, backend, n, devices, init_method, npz_path, out_dir):
                       for name, c in (("base", cfg), ("vote", vcfg))
                       if group.captures}
             replays = {name: g.replays for name, g in graphs.items()}
-            for k in (KNN5, VOTE):
+            for k in (KNN5, VOTE, SEGSUM):
                 k.launches = 0
             stage("sharded steps")
             steps = _sharded_steps(group, z, cfg, "base", SHARD_FRAMES,
@@ -2288,18 +2578,23 @@ def shard_rank(rank, backend, n, devices, init_method, npz_path, out_dir):
                                   failures, free=True)
             vote = _sharded_steps(group, z, vcfg, "vote", VOTE_N_FRAMES,
                                   inputs, failures)
-            launches = {k.source.name: k.launches for k in (KNN5, VOTE)}
+            launches = {k.source.name: k.launches
+                        for k in (KNN5, VOTE, SEGSUM)}
         finally:
             knn_call.restore()
             vote_call.restore()
+            sums_call.restore()
         graph_launches = dict.fromkeys(launches, 0)
         for name, g in graphs.items():
             replays[name] = g.replays - replays[name]
             for src, c in g.kernel_launches.items():
                 graph_launches[src] += c * replays[name]
+        # segment_sum: each step's two owned-stack downsamples and two
+        # store re-sorts
         want = {"knn.cu": 2 * cfg.outer_iterations
                 * (2 * SHARD_FRAMES + VOTE_N_FRAMES),
-                "vote.cu": vcfg.outer_iterations * VOTE_N_FRAMES}
+                "vote.cu": vcfg.outer_iterations * VOTE_N_FRAMES,
+                "segsum.cu": 4 * (2 * SHARD_FRAMES + VOTE_N_FRAMES)}
         total = {name: launches[name] + graph_launches[name] for name in want}
         if total != want or (graphs and any(launches.values())):
             failures.append(f"launches {launches} by the wrappers and "
@@ -2313,7 +2608,8 @@ def shard_rank(rank, backend, n, devices, init_method, npz_path, out_dir):
             for name, g in graphs.items()}
         stage("refinement")
         refine = _rank_refine(group, z, failures)
-        kernels = _rank_kernels(knn_call.args, vote_call.args, failures)
+        kernels = _rank_kernels(knn_call.args, vote_call.args,
+                                sums_call.args, failures)
         stage("captured against eager step")
         det = (_captured_vs_eager(group, z, cfg, inputs, failures)
                if group.captures and n == 1 else None)
@@ -2417,9 +2713,10 @@ def phase_sharded(kernels, p5=None, p13=None, p14=None) -> dict:
     q_ref, t_ref, _ = refine_window(*window, landmarks,
                                     n_iterations=REFINE_ITERATIONS)
 
-    launches = dict.fromkeys(("knn.cu", "vote.cu"), 0)
-    lane_launches = dict.fromkeys(("knn.cu", "vote.cu"), 0)
-    graph_launches = dict.fromkeys(("knn.cu", "vote.cu"), 0)
+    names = ("knn.cu", "vote.cu", "segsum.cu")
+    launches = dict.fromkeys(names, 0)
+    lane_launches = dict.fromkeys(names, 0)
+    graph_launches = dict.fromkeys(names, 0)
     captured_ms = {}
     failures = []
     with tempfile.TemporaryDirectory() as tmp:
@@ -2488,7 +2785,9 @@ def phase_sharded(kernels, p5=None, p13=None, p14=None) -> dict:
                     f"{r['kernels']['knn_err']:.3g} tie_swaps "
                     f"{r['kernels']['knn_swaps']}, compat_votes (R, K) = "
                     f"{tuple(r['kernels']['vote_shape'])} max_abs_err "
-                    f"{r['kernels']['vote_err']:.3g}" for r in ranks)
+                    f"{r['kernels']['vote_err']:.3g}, segment_sum (N, C, S) = "
+                    f"{tuple(r['kernels']['sums_shape'])} max_abs_err "
+                    f"{r['kernels']['sums_err']:.3g}" for r in ranks)
                 + " | launches counted by each rank's wrappers "
                 + ", ".join(str(r["launches"]) for r in ranks)
                 + ", through its lane graph's replays "
@@ -2578,12 +2877,52 @@ def phase_runs(kernels) -> tuple:
           f"{live['exact']}, runs {live['runs']} (runs / exact {ratio:.4f}) "
           f"| fused graph: warm-up {graph.warmup_seconds:.2f} s, capture "
           f"{graph.capture_seconds:.2f} s | max |fused - staged| "
-          f"{gap * 1e3:.4f} mm (limit {SAME_CARD_TOL_M * 1e3:g}, atomic sums)"
+          f"{gap * 1e3:.4f} mm (limit 0: ordered sums)"
           f" | stream ms staged " + " ".join(
               f"{n} {ms:.2f}" for n, ms in sorted(staged["stages"].items()))
           + f", fused_step {per_frame['stages']['fused_step']:.2f} | frames/s "
           f"staged {staged['fps']:.2f}, fused {per_frame['fps']:.2f}")
     return staged, per_frame
+
+
+# the kernels' names in the JSON line, by source
+KERNEL_NAMES = (("knn5", "knn.cu"), ("compat_votes", "vote.cu"),
+                ("segment_sum", "segsum.cu"))
+
+
+def segsum_json(sums, launches, graph_launches, lane_launches, p15) -> dict:
+    """The segment_sum entry of the kernels line: the numbers of its
+    costliest main-path site (the surf store's full re-sort) at the top,
+    every site under ``shapes`` (with its lanes), the launches of the
+    main-path phases."""
+    site = max(sums.values(), key=lambda v: v["N"] * v["C"]
+               if v["site"].startswith("_merge_full") else 0)
+    return {
+        "name": "segment_sum", "route": "cuda",
+        "source": "light_loam_tpu_torch/csrc/segsum.cu",
+        "replaces": "no Pallas kernel: the float index_add_ of "
+                    "light_loam_tpu_torch/ops/voxel.py, ops/sorted_store.py "
+                    "and models/refine.py (the JAX package's scatter-adds, "
+                    "light_loam_tpu/ops/voxel.py:106, "
+                    "light_loam_tpu/ops/sorted_store.py:125,128, "
+                    "light_loam_tpu/models/refine.py:186,189,196)",
+        "launches": launches["segsum.cu"],
+        "graph_launches": graph_launches["segsum.cu"],
+        "lane_launches": lane_launches["segsum.cu"],
+        "sharded_launches": p15["launches"]["segsum.cu"],
+        "sharded_graph_launches": p15["graph_launches"]["segsum.cu"],
+        "sharded_lane_launches": p15["lane_launches"]["segsum.cu"],
+        "max_abs_err": max([v["max_abs_err"] for v in sums.values()]
+                           + [v["lanes"]["max_abs_err"] for v in sums.values()
+                              if "lanes" in v]),
+        "ms": site["ms"], "plain_ms": site["plain_ms"],
+        "device_ms": site["device_ms"], "bound_ms": site["bound_ms"],
+        "bound_by": site["bound_by"],
+        "library_ms": site["library_ms"]["index_add_"],
+        "library": site["library_ms"],
+        "longest_live_segment": max(v["longest_live_segment"]
+                                    for v in sums.values()),
+        "shapes": list(sums.values())}
 
 
 def main(argv=None) -> int:
@@ -2597,7 +2936,7 @@ def main(argv=None) -> int:
     args = ap.parse_args(argv)
     smi = phase_device()
     dev = torch.device("cuda", 0)
-    kernels = (KNN5, VOTE)
+    kernels = (KNN5, VOTE, SEGSUM)
     phase_build(kernels)
     if args.only_sharded:
         p15 = phase_sharded(kernels)
@@ -2605,7 +2944,7 @@ def main(argv=None) -> int:
             {"name": name, "sharded_launches": p15["launches"][src],
              "sharded_graph_launches": p15["graph_launches"][src],
              "sharded_lane_launches": p15["lane_launches"][src]}
-            for name, src in (("knn5", "knn.cu"), ("compat_votes", "vote.cu"))
+            for name, src in KERNEL_NAMES
         ]}))
         print(smi)
         print(json.dumps({"ok": True, "device": {
@@ -2616,6 +2955,7 @@ def main(argv=None) -> int:
     knn_lanes = phase_knn_lanes(dev)
     vote = phase_vote(dev)
     vote_lanes = phase_vote_lanes(dev)
+    sums = phase_segsum(dev)
     p5 = phase_pipeline("5 pipeline", PROFILES["hdl64"], N_FRAMES,
                         JAX_MAPPED_POSITIONS, kernels)
     p6 = phase_pipeline("6 mapping vote", mapping_vote_config(),
@@ -2637,16 +2977,16 @@ def main(argv=None) -> int:
     p10 = phase_kitti(kernels, p5, p9)
     with deterministic_sums():
         p11 = phase_checkpoint(kernels, p5)
-        p12 = phase_repeatable(kernels, p5, p9)
+    p12 = phase_repeatable(kernels, p5, p9)
     p13 = phase_lanes(kernels, p9)
     p14 = phase_refine(kernels)
     p15 = phase_sharded(kernels, p5, p13, p14)
     p16 = phase_runs(kernels)
-    runs = (p5, p6, p7, p8, p9, p14) + p12 + p16
+    runs = (p5, p6, p7, p8, p9, p10, p14) + p12 + p16
     launches = {name: sum(p["launches"][name] for p in runs) + p11[name]
                 for name in p5["launches"]}
     graph_launches = {name: sum(p["graph_launches"][name] for p in runs)
-                      + p10[name] for name in p5["launches"]}
+                      for name in p5["launches"]}
     lane_launches = p13["graph_launches"]
 
     surf = knn[("surf", "below")]
@@ -2701,6 +3041,7 @@ def main(argv=None) -> int:
                                 "plain_ms", "device_ms", "plain_device_ms",
                                 "singles_device_ms", "bound_ms", "bound_by")}
              for v in vote_lanes.values()]},
+        segsum_json(sums, launches, graph_launches, lane_launches, p15),
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,7 @@ from light_loam_tpu_torch.models.odometry import (
     odometry_step,
 )
 from light_loam_tpu_torch.ops.cuda_knn import KNN5
+from light_loam_tpu_torch.ops.cuda_segsum import SEGSUM
 from light_loam_tpu_torch.ops.cuda_vote import VOTE
 from light_loam_tpu_torch.ops.features import extract_features
 
@@ -258,7 +259,7 @@ class FrameGraph:
         torch.cuda.synchronize(self.device)
         self.warmup_seconds = time.perf_counter() - t0
 
-        kernels = (KNN5, VOTE)
+        kernels = (KNN5, VOTE, SEGSUM)
         before = [k.launches for k in kernels]
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()

@@ -24,6 +24,7 @@ import torch
 
 from light_loam_tpu_torch.core import quaternion as quat
 from light_loam_tpu_torch.models.mapping import _solve3x3
+from light_loam_tpu_torch.ops.cuda_segsum import segment_sum
 from light_loam_tpu_torch.ops.knn import knn_tiled
 from light_loam_tpu_torch.ops.voxel import voxel_downsample
 from light_loam_tpu_torch.solver.gauss_newton import _huber_rho, _identity
@@ -137,23 +138,35 @@ def normal_equations(q, t, stack_xyz, stack_mask, lm: PlaneLandmarks,
     # accumulate normal equations
     Hpp = torch.einsum("kpa,kpb,kp->kab", Jp, Jp, w)
     g_p = torch.einsum("kpa,kp,kp->ka", Jp, r, w)
-    # landmark blocks scatter by m_idx (summed over keyframes too)
-    flat_lm = m_idx.reshape(-1)
+    # landmark blocks summed by m_idx (over keyframes too): each point's
+    # 3×3 block and gradient as 12 columns of one sum.  A point that is
+    # not valid has w = 0, so its rows are zeros, which leave a sum started
+    # at +0 bitwise unchanged: it goes to the dump slot instead, which
+    # keeps every landmark's segment to its own associated points
     Jl_w = Jl * w[..., None]
-    Hll = Jl.new_zeros((M, 3, 3)).index_add(
-        0, flat_lm,
-        torch.einsum("xa,xb->xab", Jl_w.reshape(-1, 3), Jl.reshape(-1, 3)))
-    g_l = Jl.new_zeros((M, 3)).index_add(
-        0, flat_lm, (Jl_w * r[..., None]).reshape(-1, 3))
+    lm_sums = _sum_by_slot(torch.cat([
+        torch.einsum("xa,xb->xab", Jl_w.reshape(-1, 3),
+                     Jl.reshape(-1, 3)).reshape(-1, 9),
+        (Jl_w * r[..., None]).reshape(-1, 3)], 1),
+        torch.where(valid, m_idx, M).reshape(-1), M)
+    Hll, g_l = lm_sums[:, :9].reshape(M, 3, 3), lm_sums[:, 9:]
     # pose-landmark coupling: (Kl, M, 6, 3)
-    flat_m = (torch.arange(Kl, device=q.device)[:, None] * M
-              + m_idx).reshape(-1)
-    Hpl = Jl.new_zeros((Kl * M, 6, 3)).index_add(
-        0, flat_m,
+    flat_m = torch.arange(Kl, device=q.device)[:, None] * M + m_idx
+    Hpl = _sum_by_slot(
         torch.einsum("xa,xb->xab", (Jp * w[..., None]).reshape(-1, 6),
-                     Jl.reshape(-1, 3)),
-    ).reshape(Kl, M, 6, 3)
+                     Jl.reshape(-1, 3)).reshape(-1, 18),
+        torch.where(valid, flat_m, Kl * M).reshape(-1),
+        Kl * M).reshape(Kl, M, 6, 3)
     return (Hpp, g_p, Hpl, Hll, g_l), (b1, b2)
+
+
+def _sum_by_slot(rows: torch.Tensor, slot: torch.Tensor, S: int):
+    """(S, C) sums of ``rows`` by ``slot``: the rows stably sorted by slot,
+    so each slot's rows keep their order and add as the CPU's
+    ``index_add`` adds them, then one ordered segment sum.  The slots come
+    from each iteration's own association, so the sort is taken anew."""
+    order = torch.argsort(slot, stable=True)
+    return segment_sum(rows[order], slot[order], S)
 
 
 def refine_window(

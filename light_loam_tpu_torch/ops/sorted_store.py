@@ -28,6 +28,7 @@ from typing import Tuple
 
 import torch
 
+from light_loam_tpu_torch.ops.cuda_segsum import segment_sum
 from light_loam_tpu_torch.ops.voxel import SENTINEL_KEY, voxel_keys
 
 
@@ -51,16 +52,18 @@ def voxel_segment_reduce(
     seg = torch.where(valid_s, torch.clamp(seg, 0, m), torch.full_like(seg, m))
 
     zero = torch.zeros((), device=xyz.device)
-    cnt = xyz.new_zeros(m + 1).index_add(0, seg, valid_s.to(xyz.dtype))
-    sum_xyz = xyz.new_zeros((m + 1, 3)).index_add(
-        0, seg, torch.where(valid_s[:, None], xyz[order], zero))
+    # count and coordinate sums as one ordered segment sum
+    sums = segment_sum(
+        torch.cat([valid_s[:, None].to(xyz.dtype),
+                   torch.where(valid_s[:, None], xyz[order], zero)], 1),
+        seg, m)
     # exactly one head per segment: these adds write each key/cell once
     ukey = torch.zeros(m + 1, dtype=torch.int64, device=xyz.device).index_add(
         0, seg, torch.where(head, key_s, torch.zeros_like(key_s)))
     cell_s = cell[order].to(torch.int32)
     ucell = torch.zeros(m + 1, dtype=torch.int32, device=xyz.device).index_add(
         0, seg, torch.where(head, cell_s, torch.zeros_like(cell_s)))
-    return ukey[:m], sum_xyz[:m], cnt[:m], ucell[:m]
+    return ukey[:m], sums[:, 1:], sums[:, 0], ucell[:m]
 
 
 def merge_sorted(
@@ -90,7 +93,9 @@ def merge_sorted(
     match = umask & (p < n) & (skey[pm] == ukey)
 
     # matched voxels: running centroid; untouched live rows divide by
-    # exactly 1 and stay bitwise intact
+    # exactly 1 and stay bitwise intact.  Each live row receives at most one
+    # voxel (store keys are unique) and the dump row is thrown away, so
+    # these float index_adds add to 0 once: exact in any order
     tgt = torch.where(match, pm, torch.full_like(pm, n))
     add_cnt = store_xyz.new_zeros(n + 1).index_add(0, tgt, ucnt)[:n]
     add_sum = store_xyz.new_zeros((n + 1, 3)).index_add(0, tgt, usum)[:n]

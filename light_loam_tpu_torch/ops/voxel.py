@@ -12,10 +12,12 @@ minor``, whose order is the lexicographic order of the pair, and the
 per-ring downsample folds the ring id into the same key so every ring
 shares one sort.
 
-Segment sums use ``index_add``.  On CUDA it adds with atomics, so the
-order of the float additions inside a voxel, and with it the last bit of a
-centroid, can change from run to run; on the CPU it adds in index order,
-like the JAX package's scatter-add.
+The float sums per voxel are ``ops/cuda_segsum.py`` ``segment_sum`` over
+the key-sorted rows: each voxel's points are added in sorted order, on the
+card by ``csrc/segsum.cu`` and on the CPU by ``index_add``, so a centroid
+has the same bits on every run, and the same on both devices given the
+same rows.  The integer sums and maxima stay ``index_add`` /
+``scatter_reduce``: exact in any order.
 """
 
 from __future__ import annotations
@@ -23,6 +25,8 @@ from __future__ import annotations
 from typing import Optional, Tuple
 
 import torch
+
+from light_loam_tpu_torch.ops.cuda_segsum import segment_sum
 
 # Voxel indices are biased into [0, 2**15) per axis; supports |coord| up to
 # ~3200 m at a 0.2 m leaf.
@@ -97,7 +101,7 @@ def voxel_downsample(
     head, seg = _segments(key_s, valid_s, capacity)
 
     payload = _masked_payload(xyz[order], rel[order], valid_s)
-    acc = xyz.new_zeros((capacity + 1, 5)).index_add(0, seg, payload)
+    acc = segment_sum(payload, seg, capacity)
     if extra_key is not None:
         ex = torch.where(valid_s, extra_key[order].to(torch.int32),
                          torch.zeros((), dtype=torch.int32, device=xyz.device))
@@ -107,10 +111,9 @@ def voxel_downsample(
     else:
         extra_out = torch.zeros(capacity, dtype=torch.int32, device=xyz.device)
 
-    cnt = acc[:capacity, 4]
+    cnt = acc[:, 4]
     denom = torch.clamp(cnt, min=1.0)
-    out = (acc[:capacity, :3] / denom[:, None], acc[:capacity, 3] / denom,
-           cnt > 0, extra_out)
+    out = (acc[:, :3] / denom[:, None], acc[:, 3] / denom, cnt > 0, extra_out)
     if with_count:
         return out + (head.sum(dtype=torch.int32),)
     return out
@@ -145,7 +148,7 @@ def voxel_downsample_rings(
 
     payload = _masked_payload(xyz.reshape(-1, 3)[order],
                               rel.reshape(-1)[order], valid_s)
-    acc = xyz.new_zeros((R * H + 1, 5)).index_add(0, seg, payload)
+    acc = segment_sum(payload, seg, R * H)
     denom = torch.clamp(acc[:, 4], min=1.0)
     cent = torch.cat([acc[:, :3] / denom[:, None], (acc[:, 3] / denom)[:, None]],
                      dim=1)
@@ -158,7 +161,7 @@ def voxel_downsample_rings(
     nr = n[:, None]
     src = torch.where(nr > C, (j * nr) // C, j)
     keep = j < torch.clamp(nr, max=C)
-    gid = torch.clamp(first[:, None] + src, max=R * H)
+    gid = torch.clamp(first[:, None] + src, max=R * H - 1)
     out = torch.where(keep[..., None], cent[gid], torch.zeros((), device=dev))
     return out[..., :3], out[..., 3], keep
 

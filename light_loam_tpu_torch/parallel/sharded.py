@@ -54,6 +54,7 @@ from light_loam_tpu_torch.models.mapping import (
 )
 from light_loam_tpu_torch.ops import graphvote
 from light_loam_tpu_torch.ops.cuda_knn import KNN5
+from light_loam_tpu_torch.ops.cuda_segsum import SEGSUM
 from light_loam_tpu_torch.ops.cuda_vote import VOTE
 from light_loam_tpu_torch.ops.voxel import compact_rows, voxel_downsample
 from light_loam_tpu_torch.solver import FactorSet, PlaneNormFactors, lm_solve
@@ -524,7 +525,7 @@ class ShardedStepGraph:
             torch.cuda.synchronize(self.device)
         self.warmup_seconds = time.perf_counter() - t0
 
-        kernels = (KNN5, VOTE)
+        kernels = (KNN5, VOTE, SEGSUM)
         before = [k.launches for k in kernels]
         counts = (self.group.collectives, self.group.bytes)
         t0 = time.perf_counter()

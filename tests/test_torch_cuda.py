@@ -24,19 +24,18 @@ search, by the same float64 rules (``full_vote_margins``); the pipeline's
 launch counts are derived from its config (``chip_smoke.expected_launches``)
 with the vote path off and with the latent vote path on.
 
-The fused frame (models/fused.py) replays a CUDA graph of the very ops the
-eager body enqueues, and the staged path runs the same stage functions, so
-graph, eager body and staged run differ only by the order of the atomic
-adds in the voxel sums (``index_add_``, ops/voxel.py).  That order changes
-from run to run, a centroid's last bit with it, and through the float32
-plane-fit gates (ROADMAP.md Queue 3) the trajectory: on an H100 two runs of
-the same flagship frames are millimetres apart after a few frames, two
-staged runs as much as a staged and a fused one.  Under
-``torch.use_deterministic_algorithms(True)`` the sums are ordered, and two
-staged, two fused and a staged and a fused run of ten flagship frames were
-bitwise equal (PERF.md).  So the graph tests run under that setting and are
-held to 1e-5; one test keeps PyTorch's default sums and the 3 cm band of
-the JAX package's own chunked-against-per-frame test (tests/test_fused.py).
+The segment sum (csrc/segsum.cu) adds each slot's rows in row order, the
+order of ``index_add`` on the CPU, so it is held to its plain version on
+CPU copies of its inputs bit for bit.  The fused frame (models/fused.py)
+replays a CUDA graph of the very ops the eager body enqueues, and the
+staged path runs the same stage functions; with the voxel, store and
+refinement sums ordered, graph, eager body and staged run are the same
+computation, and two runs with PyTorch's default settings are held to each
+other bitwise.  (With ``index_add_``'s atomics the order of the adds
+changed from run to run, and through the float32 plane-fit gates, ROADMAP.md
+Queue 3, the trajectory: millimetres after a few flagship frames.)  The
+graph tests written then run under ``torch.use_deterministic_algorithms``
+and are held to 1e-5; their twins with the default settings bitwise.
 The batched lanes (models/batch.py) launch each kernel once for all lanes
 through the kernels' vmap rules; a lane's result is bit for bit the single
 launch's.  Their graph is held to the eager vmapped body under
@@ -55,6 +54,7 @@ from chip_smoke import (
     expected_launches,
     latent_vote_config,
     replay_kernel_counts,
+    replay_launches,
 )
 from light_loam_tpu_torch.core.frame import PointCloud
 from light_loam_tpu_torch.models import batch, fused
@@ -62,6 +62,11 @@ from light_loam_tpu_torch.models import pipeline as tpl
 from light_loam_tpu_torch.models.mapping import MappingState, mapping_step
 from light_loam_tpu_torch.models.odometry import OdometryState
 from light_loam_tpu_torch.ops import cuda_build
+from light_loam_tpu_torch.ops.cuda_segsum import (
+    SEGSUM,
+    segment_sum,
+    segment_sum_plain,
+)
 from light_loam_tpu_torch.ops.cuda_knn import (
     KNN5,
     knn5,
@@ -485,15 +490,19 @@ def test_cuda_pipeline_matches_cpu_and_counts_launches(cuda, latent):
     cfg = tpl.PROFILES[run["profile"]]
     if latent:
         cfg = latent_vote_config(cfg)
-    KNN5.launches = VOTE.launches = 0
+    KNN5.launches = VOTE.launches = SEGSUM.launches = 0
     pipe, res = _run_synthetic(cfg, run, "cuda")
     n_mapped = sum(r.mapped for r in res)
     want = expected_launches(cfg, len(res), n_mapped)
-    assert {"vote.cu": VOTE.launches, "knn.cu": KNN5.launches} == want
+    assert _launches() == want
     cpu_pipe, _ = _run_synthetic(cfg, run, "cpu")
     # the CPU and the card round differently; see test_torch_pipeline.py
     np.testing.assert_allclose(pipe.mapped_positions(),
                                cpu_pipe.mapped_positions(), rtol=0, atol=0.02)
+
+
+def _launches() -> dict:
+    return {k.source.name: k.launches for k in (KNN5, VOTE, SEGSUM)}
 
 
 def _run_synthetic(cfg, run, device):
@@ -507,13 +516,14 @@ def _run_synthetic(cfg, run, device):
 # docstring): the runs measured bitwise equal; held to the 1e-5 of the CPU
 # twins in tests/test_torch_fused.py
 GRAPH_ATOL = 1e-5
-# two runs with PyTorch's default, atomic sums
-ATOMIC_ATOL_M = 0.03
+# two runs with PyTorch's default settings: with index_add_'s atomic sums
+# they were held to 3 cm, with the ordered sums bitwise
+DEFAULT_ATOL_M = 0.0
 
 
 @pytest.fixture
 def deterministic_sums():
-    """``index_add_`` without atomics, for this test only.  Graphs are
+    """PyTorch's deterministic algorithms, for this test only.  Graphs are
     captured with the setting in force, so none outlives the test."""
     from light_loam_tpu_torch.parallel import sharded
 
@@ -553,15 +563,16 @@ def test_graph_replay_matches_eager_body(cuda, monkeypatch, deterministic_sums,
     real_body = fused._fused_frame_body
     monkeypatch.setattr(fused, "_fused_frame_body",
                         lambda *a: body_calls.append(1) or real_body(*a))
-    KNN5.launches = VOTE.launches = 0
+    KNN5.launches = VOTE.launches = SEGSUM.launches = 0
     graph = fused.frame_graph(cfg, cuda)
     assert len(body_calls) == fused.WARMUP_PASSES + 1
-    per_replay = expected_launches(cfg, 1, 1)
+    per_replay = replay_launches(cfg)
     assert graph.kernel_launches == per_replay
     # the wrappers counted the warm-up and the capture pass, and count no
     # replay
-    passes = expected_launches(cfg, len(body_calls), len(body_calls))
-    assert {"vote.cu": VOTE.launches, "knn.cu": KNN5.launches} == passes
+    passes = expected_launches(cfg, len(body_calls), len(body_calls),
+                               keyframes=0)
+    assert _launches() == passes
     assert replay_kernel_counts(graph)[0] == per_replay
 
     odo_g, map_g = _init_states(cfg, cuda)
@@ -587,9 +598,8 @@ def test_graph_replay_matches_eager_body(cuda, monkeypatch, deterministic_sums,
     # one capture served every frame; the eager body above ran unpatched
     assert len(body_calls) == fused.WARMUP_PASSES + 1
     assert graph.replays == 3 and fused.frame_graph(cfg, cuda) is graph
-    eager = expected_launches(cfg, 3, 3)
-    assert {"vote.cu": VOTE.launches, "knn.cu": KNN5.launches} == {
-        name: passes[name] + eager[name] for name in eager}
+    eager = expected_launches(cfg, 3, 3, keyframes=0)
+    assert _launches() == {name: passes[name] + eager[name] for name in eager}
 
 
 @pytest.mark.cuda
@@ -620,11 +630,13 @@ def _fused_and_staged(cuda, run):
     base = tpl.PROFILES["hdl64-small"]
     cfg = dataclasses.replace(base, fused_step=True)
     graph = fused.frame_graph(cfg, cuda)
-    KNN5.launches = VOTE.launches = 0
+    KNN5.launches = VOTE.launches = SEGSUM.launches = 0
     pipe, res = _run_synthetic(cfg, run, "cuda")
     assert graph.replays == run["n_frames"] and all(r.mapped for r in res)
-    # the fused run went through the graph alone
+    # the fused run went through the graph alone, but for the host loop's
+    # keyframe stack (one segment sum a frame)
     assert KNN5.launches == 0 and VOTE.launches == 0
+    assert SEGSUM.launches == run["n_frames"]
     staged, sres = _run_synthetic(base, run, "cuda")
     assert len(pipe._keyframes) == len(staged._keyframes) == run["n_frames"]
     assert "fused_step" in pipe.timers.report()
@@ -646,14 +658,15 @@ def test_fused_pipeline_matches_staged_on_card(cuda, deterministic_sums):
 
 @pytest.mark.cuda
 def test_fused_pipeline_near_staged_with_atomic_sums(cuda):
-    """The same with PyTorch's default sums, as the entry points run: two
-    runs on the card are millimetres apart (module docstring)."""
+    """The same with PyTorch's default settings, as the entry points run:
+    with the ordered sums the two runs are bitwise equal (module
+    docstring)."""
     fused.clear_graphs()
     run = dict(n_frames=4, n_azimuth=700, speed=0.6, seed=2)
     pipe, _, staged, _ = _fused_and_staged(cuda, run)
     np.testing.assert_allclose(pipe.mapped_positions(),
                                staged.mapped_positions(), rtol=0,
-                               atol=ATOMIC_ATOL_M)
+                               atol=DEFAULT_ATOL_M)
     fused.clear_graphs()
 
 
@@ -780,11 +793,11 @@ def test_batched_graph_replay_matches_eager_body(cuda, deterministic_sums):
     ms = torch.as_tensor(np.stack([[f[2] for f in lane] for lane in lanes],
                                   1)).to(cuda)
     graph = fused.frame_graph(cfg, cuda, lanes=B)
-    per_replay = expected_launches(cfg, 1, 1)
+    per_replay = replay_launches(cfg)
     assert graph.kernel_launches == per_replay
     assert replay_kernel_counts(graph)[0] == per_replay
 
-    KNN5.launches = VOTE.launches = 0
+    KNN5.launches = VOTE.launches = SEGSUM.launches = 0
     state_g = batch.init_batch_state(cfg, B, cuda)
     state_e = batch.init_batch_state(cfg, B, cuda)
     rows = []
@@ -796,7 +809,7 @@ def test_batched_graph_replay_matches_eager_body(cuda, deterministic_sums):
                 state_g, x, m, cfg)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        assert KNN5.launches == VOTE.launches == 0
+        assert KNN5.launches == VOTE.launches == SEGSUM.launches == 0
         state_e, out_e, mout_e = batch._batched_body(state_e, x, m, cfg)
         for got, want in ((out_g.t_w, out_e.t_w), (out_g.q_w, out_e.q_w),
                           (mout_g.t_w, mout_e.t_w), (mout_g.q_w, mout_e.q_w),
@@ -807,7 +820,7 @@ def test_batched_graph_replay_matches_eager_body(cuda, deterministic_sums):
         assert (mout_e.map_surf_points > 0).all()
         assert torch.equal(mout_g.map_surf_points, mout_e.map_surf_points)
         rows.append(mout_g.t_w.cpu().numpy())
-        KNN5.launches = VOTE.launches = 0
+        KNN5.launches = VOTE.launches = SEGSUM.launches = 0
     assert graph.replays == 3
     # the lanes saw different worlds
     assert np.abs(rows[-1][0] - rows[-1][1]).max() > 1e-3
@@ -819,14 +832,14 @@ def test_batched_graph_replay_matches_eager_body(cuda, deterministic_sums):
                                    rtol=0, atol=GRAPH_ATOL)
 
     fused.frame_graph(cfg, cuda, chunk=3, lanes=B)
-    KNN5.launches = VOTE.launches = 0
+    KNN5.launches = VOTE.launches = SEGSUM.launches = 0
     state_c, (oq, ot, mq, mt) = batch.batched_chunk_step(
         batch.init_batch_state(cfg, B, cuda), xs, ms, cfg)
     assert mt.shape == (3, B, 3) and oq.shape == (3, B, 4)
     np.testing.assert_allclose(mt.cpu().numpy(), np.stack(rows), rtol=0,
                                atol=GRAPH_ATOL)
     assert state_c.mapping.frame.tolist() == [3] * B
-    assert KNN5.launches == VOTE.launches == 0
+    assert KNN5.launches == VOTE.launches == SEGSUM.launches == 0
 
 
 # the windowed refinement (models/refine.py): the card against the CPU, in
@@ -969,8 +982,8 @@ def test_sharded_step_world_one_over_nccl(cuda, nccl_world_one):
     """``sharded_mapping_step`` at world 1 over NCCL on the card, one step
     from each of 4 successive single-device states (tests/test_sharded.py's
     capacities and clouds): within the JAX test's one-step bounds of
-    ``mapping_step`` from the same state (both add with atomics), every
-    step one replay of the captured step, every 5-NN through the kernel."""
+    ``mapping_step`` from the same state, every step one replay of the
+    captured step, every 5-NN and every sum through the kernels."""
     from light_loam_tpu_torch.parallel import sharded
     from light_loam_tpu_torch.parallel.sharded import (
         shard_mapping_state,
@@ -994,7 +1007,9 @@ def test_sharded_step_world_one_over_nccl(cuda, nccl_world_one):
     (graph,) = sharded._GRAPHS.values()
     per_replay = 2 * cfg.outer_iterations
     assert graph.replays == 4
-    assert graph.kernel_launches == {"knn.cu": per_replay, "vote.cu": 0}
+    # segment sums: the two owned-stack downsamples and two store re-sorts
+    assert graph.kernel_launches == {"knn.cu": per_replay, "vote.cu": 0,
+                                     "segsum.cu": 4}
     # the wrappers counted the warm-up and the capture pass and no replay;
     # the single-device steps launched their own
     assert KNN5.launches == (fused.WARMUP_PASSES + 1 + 4) * per_replay
@@ -1035,7 +1050,7 @@ def test_captured_sharded_step_equals_eager_body(cuda, nccl_world_one,
     assert graph.replays == 4 and graph.collectives == 0
     assert graph.kernel_launches == {
         "knn.cu": 2 * cfg.outer_iterations,
-        "vote.cu": cfg.outer_iterations if vote else 0}
+        "vote.cu": cfg.outer_iterations if vote else 0, "segsum.cu": 4}
 
 
 @pytest.mark.cuda
@@ -1054,8 +1069,8 @@ def test_nccl_capture_probe_world_one(cuda, nccl_world_one):
 @pytest.mark.cuda
 def test_runs_mode_fused_frame_captures(cuda):
     """``lessflat_mode="runs"`` in the fused frame: the capture holds it,
-    and the positions stay within the 3 cm of two runs with atomic sums of
-    the staged runs-mode frames."""
+    and the positions are the staged runs-mode frames' (DEFAULT_ATOL_M:
+    bitwise with the ordered sums)."""
     base = tpl.PROFILES["hdl64-small"]
     cfg = dataclasses.replace(
         base, scan=dataclasses.replace(base.scan, lessflat_mode="runs"))
@@ -1069,10 +1084,188 @@ def test_runs_mode_fused_frame_captures(cuda):
         assert graph.replays == run["n_frames"] and all(r.mapped for r in res)
         np.testing.assert_allclose(pipe.mapped_positions(),
                                    staged.mapped_positions(), rtol=0,
-                                   atol=ATOMIC_ATOL_M)
+                                   atol=DEFAULT_ATOL_M)
         assert np.abs(pipe.mapped_positions()[-1]).max() > 1.0
     finally:
         fused.clear_graphs()
+
+
+def segsum_inputs(N, C, S, seed, dtype=torch.float32, device="cpu"):
+    """(values (N, C), seg (N,)) like a voxel sum's: runs of 1-8 rows in
+    sorted slots (some slots empty, some runs merged), one run of 2000
+    rows, the slots past S - 1 clipped to S (over capacity), and the last
+    third of the rows dead, in the dump slot S."""
+    rng = np.random.default_rng(seed)
+    live = (2 * N) // 3
+    lengths = rng.integers(1, 9, max(1, live // 5))
+    lengths[len(lengths) // 2] = 2000
+    slots = np.minimum(np.sort(rng.integers(0, S + S // 4 + 1,
+                                            len(lengths))), S)
+    seg = np.repeat(slots, lengths)[:live]
+    seg = np.concatenate([seg, np.full(N - len(seg), S)])
+    values = rng.normal(0.0, 50.0, (N, C))
+    return (torch.as_tensor(values, dtype=dtype).to(device),
+            torch.as_tensor(seg, dtype=torch.int64).to(device))
+
+
+# (N, C, S) of the main path (chip_smoke.py phase 3c): the less-flat
+# rings, the surf store's full re-sort, the surf stack, the surf store's
+# reduce, the refinement's landmark and pose-landmark blocks
+SEGSUM_SHAPES = [(115200, 5, 115200), (270336, 5, 262144),
+                 (32768, 5, 8192), (8192, 4, 8192), (32768, 12, 512),
+                 (32768, 18, 8192)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C,S", SEGSUM_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_segment_sum_kernel_equals_plain(cuda, N, C, S, dtype):
+    """The kernel bit for bit the plain version on CPU copies of its
+    inputs (a left fold in row order, the kernel's order), and the same
+    bits on a second launch; one launch counted per call."""
+    values, seg = segsum_inputs(N, C, S, N + C, dtype, cuda)
+    before = SEGSUM.launches
+    got = segment_sum(values, seg, S)
+    again = segment_sum(values, seg, S)
+    torch.cuda.synchronize()
+    assert SEGSUM.launches == before + 2
+    assert got.shape == (S, C) and got.dtype == dtype
+    want = segment_sum_plain(values.cpu(), seg.cpu(), S)
+    np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
+    assert torch.equal(got, again)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N,C,S", [SEGSUM_SHAPES[0], SEGSUM_SHAPES[1],
+                                   SEGSUM_SHAPES[4]])
+def test_segment_sum_lanes_equal_single_launches(cuda, N, C, S):
+    """B = 4 lanes under ``torch.vmap``, one launch: each lane bit for bit
+    its single launch and its plain version."""
+    B = 4
+    lanes = [segsum_inputs(N, C, S, b, device=cuda) for b in range(B)]
+    values = torch.stack([v for v, _ in lanes])
+    seg = torch.stack([s for _, s in lanes])
+    before = SEGSUM.launches
+    got = torch.vmap(segment_sum, in_dims=(0, 0, None))(values, seg, S)
+    torch.cuda.synchronize()
+    assert SEGSUM.launches == before + 1 and got.shape == (B, S, C)
+    for b in range(B):
+        assert torch.equal(got[b], segment_sum(values[b], seg[b], S))
+        np.testing.assert_array_equal(
+            got[b].cpu().numpy(),
+            segment_sum_plain(values[b].cpu(), seg[b].cpu(), S).numpy())
+
+
+@pytest.mark.cuda
+def test_segment_sum_refuses_bad_inputs(cuda):
+    values, seg = segsum_inputs(1000, 5, 100, 0, device=cuda)
+    with pytest.raises(ValueError, match="dtype"):
+        segment_sum(values.half(), seg, 100)
+    with pytest.raises(ValueError, match="dtype"):
+        segment_sum(values, seg.int(), 100)
+    with pytest.raises(ValueError, match="do not match"):
+        segment_sum(values, seg[:-1], 100)
+
+
+@pytest.mark.cuda
+def test_one_writer_merge_is_repeatable(cuda):
+    """``merge_sorted``'s two float ``index_add``s (ops/sorted_store.py)
+    write at most one row into each live target, so on the card they add
+    to 0 once and are exact in any order: the merge, run three times, is
+    bitwise the same, and bitwise the CPU's."""
+    from light_loam_tpu_torch.ops.sorted_store import merge_sorted
+    from light_loam_tpu_torch.ops.voxel import voxel_downsample
+
+    rng = np.random.default_rng(4)
+    leaf = 0.4
+
+    def cloud(n, live):
+        xyz = torch.as_tensor(rng.uniform(-40, 40, (n, 3)), dtype=torch.float32)
+        return xyz, torch.as_tensor(rng.random(n) < live)
+
+    xyz, mask = cloud(60000, 0.7)
+    cell = torch.as_tensor(rng.integers(0, 50, 60000), dtype=torch.int32)
+    store_xyz, _, store_mask, store_cell = voxel_downsample(
+        xyz, torch.zeros(60000), mask, leaf, 65536, extra_key=cell)
+    new_xyz, new_mask = cloud(8192, 0.9)
+    # half the new points fall into voxels the store holds
+    new_xyz[:4096] = store_xyz[:4096] + 0.01
+    new_cell = store_cell[:8192].clone()
+    args = (store_xyz, store_cell, store_mask, new_xyz, new_cell, new_mask)
+    want = merge_sorted(*args, leaf)
+    runs = [merge_sorted(*(a.to(cuda) for a in args), leaf) for _ in range(3)]
+    for run in runs:
+        for got, ref in zip(run, want):
+            assert torch.equal(got.cpu(), ref)
+    assert int(want[2].sum()) > int(store_mask.sum())
+
+
+@pytest.mark.cuda
+def test_default_settings_runs_are_bitwise_equal(cuda):
+    """Two staged runs and two fused runs of 3 hdl64-small frames with
+    PyTorch's default settings, as the entry points run: the four
+    trajectories bitwise equal (the sums are ordered)."""
+    base = tpl.PROFILES["hdl64-small"]
+    fused.clear_graphs()
+    run = dict(n_frames=3, n_azimuth=700, speed=0.6, seed=2)
+    try:
+        paths = []
+        for cfg in (base, base, dataclasses.replace(base, fused_step=True),
+                    dataclasses.replace(base, fused_step=True)):
+            pipe, res = _run_synthetic(cfg, run, "cuda")
+            paths.append((pipe.mapped_positions(),
+                          np.stack([r.odom_t for r in res])))
+    finally:
+        fused.clear_graphs()
+    for mapped, odom in paths[1:]:
+        np.testing.assert_array_equal(mapped, paths[0][0])
+        np.testing.assert_array_equal(odom, paths[0][1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("surf_knn", ["auto", "tiled"])
+def test_graph_replay_matches_eager_body_default_settings(cuda, tmp_path,
+                                                          surf_knn):
+    """``test_graph_replay_matches_eager_body`` with PyTorch's default
+    settings: three frames through ``fused_frame_step`` (one capture, then
+    one replay per frame, no host read) and through the eager body on the
+    same states, bitwise equal.  On a failure both runs' poses go to an
+    .npz under ``tmp_path``, named in the message."""
+    base = tpl.PROFILES["hdl64-small"]
+    cfg = dataclasses.replace(
+        base, odometry=dataclasses.replace(base.odometry, surf_knn=surf_knn))
+    fused.clear_graphs()
+    frames = _small_frames(cfg, 3, cuda)
+    odo_g, map_g = _init_states(cfg, cuda)
+    odo_e, map_e = _init_states(cfg, cuda)
+    poses = {"graph": [], "eager": []}
+    try:
+        graph = fused.frame_graph(cfg, cuda)
+        for xyz, mask in frames:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                odo_g, map_g, out_g, mout_g, _ = fused.fused_frame_step(
+                    odo_g, map_g, xyz, mask, cfg)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            odo_e, map_e, out_e, mout_e, _ = fused._fused_frame_body(
+                odo_e, map_e, xyz, mask, cfg)
+            for name, out, mout, mp in (("graph", out_g, mout_g, map_g),
+                                        ("eager", out_e, mout_e, map_e)):
+                poses[name].append(torch.cat([
+                    out.q_w, out.t_w, mout.q_w, mout.t_w, mp.t_wm]).cpu())
+        assert graph.replays == 3 and fused.frame_graph(cfg, cuda) is graph
+    finally:
+        fused.clear_graphs()
+    got, want = (torch.stack(poses[n]).numpy() for n in ("graph", "eager"))
+    if not np.array_equal(got, want):
+        path = tmp_path / "graph_vs_eager_poses.npz"
+        np.savez(path, graph=got, eager=want)
+        raise AssertionError(
+            f"graph and eager body differ by {np.abs(got - want).max():.3e} "
+            f"(rows: frames; columns: odometry q, t, mapping q, t, t_wm); "
+            f"both runs' poses are in {path}")
 
 
 @pytest.mark.cuda

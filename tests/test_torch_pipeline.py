@@ -17,6 +17,7 @@ import torch
 from light_loam_tpu.models import pipeline as jpl
 from light_loam_tpu_torch.models import pipeline as tpl
 from light_loam_tpu_torch.ops.cuda_knn import KNN5
+from light_loam_tpu_torch.ops.cuda_segsum import SEGSUM
 from light_loam_tpu_torch.ops.cuda_vote import VOTE
 
 torch.set_num_threads(2)
@@ -28,9 +29,10 @@ AGREE_M = 0.02
 
 def test_pipeline_matches_jax_and_truth():
     _, jres, truth = jpl.run_synthetic(**RUN)
-    KNN5.launches = VOTE.launches = 0
+    KNN5.launches = VOTE.launches = SEGSUM.launches = 0
     pipe, tres, ttruth = tpl.run_synthetic(**RUN, device="cpu")
     assert KNN5.launches == 0 and VOTE.launches == 0
+    assert SEGSUM.launches == 0
     np.testing.assert_array_equal(ttruth, truth)
     assert len(tres) == len(jres) == 6
 
