@@ -90,6 +90,22 @@ def quat_exp(phi: torch.Tensor) -> torch.Tensor:
     return torch.cat([k * phi, torch.cos(half)], dim=-1)
 
 
+def quat_log(q: torch.Tensor) -> torch.Tensor:
+    """Logarithm map: unit quaternion -> rotation vector (..., 3), taken on
+    the w >= 0 hemisphere (q and -q give the same vector)."""
+    qn = quat_normalize(q)
+    qn = qn * torch.where(qn[..., 3:4] < 0, -1.0, 1.0).to(q.dtype)
+    v = qn[..., :3]
+    w = torch.clamp(qn[..., 3:4], -1.0, 1.0)
+    vnorm = torch.linalg.vector_norm(v, dim=-1, keepdim=True)
+    angle = 2.0 * torch.atan2(vnorm, w)
+    small = vnorm < 1e-8
+    # angle / |v| -> 2 as |v| -> 0
+    k = torch.where(small, torch.full_like(vnorm, 2.0),
+                    angle / torch.where(small, torch.ones_like(vnorm), vnorm))
+    return k * v
+
+
 def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
     """Unit quaternion (..., 4) -> rotation matrix (..., 3, 3)."""
     x, y, z, w = q.unbind(-1)
@@ -105,3 +121,36 @@ def quat_to_matrix(q: torch.Tensor) -> torch.Tensor:
         dim=-1,
     )
     return m.reshape(q.shape[:-1] + (3, 3))
+
+
+def matrix_to_quat(m: torch.Tensor) -> torch.Tensor:
+    """Rotation matrix (..., 3, 3) -> unit quaternion (..., 4) xyzw with
+    w >= 0.
+
+    Branch-free Shepperd selection: all four constructions are formed and
+    the one with the largest pivot (trace or a diagonal entry) is taken."""
+    m00, m01, m02 = m[..., 0, 0], m[..., 0, 1], m[..., 0, 2]
+    m10, m11, m12 = m[..., 1, 0], m[..., 1, 1], m[..., 1, 2]
+    m20, m21, m22 = m[..., 2, 0], m[..., 2, 1], m[..., 2, 2]
+    tr = m00 + m11 + m22
+    piv = torch.stack([1.0 + tr, 1.0 + m00 - m11 - m22,
+                       1.0 - m00 + m11 - m22, 1.0 - m00 - m11 + m22], dim=-1)
+    piv = torch.sqrt(torch.clamp(piv, min=1e-12)) * 0.5
+    w0, x1, y2, z3 = piv.unbind(-1)
+    cand = torch.stack(
+        [
+            torch.stack([(m21 - m12) / (4 * w0), (m02 - m20) / (4 * w0),
+                         (m10 - m01) / (4 * w0), w0], dim=-1),
+            torch.stack([x1, (m01 + m10) / (4 * x1), (m02 + m20) / (4 * x1),
+                         (m21 - m12) / (4 * x1)], dim=-1),
+            torch.stack([(m01 + m10) / (4 * y2), y2, (m12 + m21) / (4 * y2),
+                         (m02 - m20) / (4 * y2)], dim=-1),
+            torch.stack([(m02 + m20) / (4 * z3), (m12 + m21) / (4 * z3), z3,
+                         (m10 - m01) / (4 * z3)], dim=-1),
+        ],
+        dim=-2,
+    )
+    pick = torch.argmax(torch.stack([tr, m00, m11, m22], dim=-1), dim=-1)
+    q = torch.take_along_dim(cand, pick[..., None, None], dim=-2)[..., 0, :]
+    q = q * torch.where(q[..., 3:4] < 0, -1.0, 1.0).to(q.dtype)
+    return quat_normalize(q)

@@ -31,6 +31,7 @@ call, whatever B is.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -39,24 +40,62 @@ from light_loam_tpu_torch.ops.cuda_knn import lanes_first
 
 SEGSUM = CudaKernel(
     "segsum.cu", "segment_sum_launch",
-    [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 3
-    + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p],
+    [ctypes.c_void_p] * 2 + [ctypes.c_int64] * 3 + [ctypes.c_int] * 4
+    + [ctypes.c_int64, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
+       ctypes.c_void_p],
 )
 
-# segsum.cu's column groups: a thread sums one column of a slot, or up to
-# WIDE_GROUP of them (the instantiations the source has)
-WIDE_GROUP = 8
-# threads that give every SM of an H100 (132) one block of segsum.cu's 256
-FILL_THREADS = 132 * 256
+# segsum.cu's block size, the most rows a tile has (ROWS_PER_THREAD a
+# thread), its shared-memory budget for the value rows it stages at a time
+# and the running sums of a segment that runs past the tile, the most slot
+# ids a thread loads in a search round, and the blocks an SM holds
+THREADS = 256
+TILE_ROWS = 512
+TILE_BYTES = 32768
+PROBES_MAX = 8
+MIN_BLOCKS = 5
+# one wave of the kernel on an H100 (132 SMs)
+WAVE = 132 * MIN_BLOCKS
+# the fewest rows a tile has where the row width allows more
+MIN_TILE_ROWS = 64
 
 
-def segsum_geometry(B: int, S: int, C: int) -> int:
-    """Columns per thread of segsum.cu: WIDE_GROUP where B·S slots alone
-    (one thread per slot and group of WIDE_GROUP columns) fill the card,
-    so that each slot is searched for once; else 1 (one thread per output
-    element: more threads for few slots, and a long segment's columns
-    folded side by side)."""
-    return WIDE_GROUP if B * S * -(-C // WIDE_GROUP) >= FILL_THREADS else 1
+def search_rounds(N: int, probes: int) -> int:
+    """Rounds of segsum.cu's search for a lane's live count among N rows,
+    at most: each round cuts the n rows left to ceil(n / P) - 1, with P =
+    THREADS slot ids loaded side by side in the first round (alongside the
+    tile's) and probes · THREADS in each later one."""
+    P, rounds = THREADS, 0
+    while N > 0:
+        N, P, rounds = -(-N // P) - 1, probes * THREADS, rounds + 1
+    return rounds
+
+
+@functools.lru_cache(maxsize=None)
+def segsum_geometry(N: int, S: int, C: int, itemsize: int) -> tuple:
+    """(rows a tile, rows staged at a time, blocks per lane, probes per
+    thread) of segsum.cu for N rows of C values of ``itemsize`` bytes into
+    S slots.  Staged at a time: TILE_ROWS rows, halved while they and one
+    more row of running sums pass TILE_BYTES.  A tile: the fewest rows,
+    from MIN_TILE_ROWS up to that, whose grid (a block for every tile of
+    rows and for as many slots of the empty tail) fits one WAVE; the fewer
+    rows a tile, the more SMs share the folds.  Probes: the fewest that
+    give the fewest search rounds.  Raises for rows too wide to stage one
+    at a time."""
+    width = C * itemsize
+    if 2 * width > TILE_BYTES:
+        raise ValueError(f"segment_sum: rows of {C} x {itemsize} bytes pass "
+                         f"the kernel's {TILE_BYTES // 2}-byte limit")
+    buf = TILE_ROWS
+    while (buf + 1) * width > TILE_BYTES:
+        buf //= 2
+    rows = min(buf, MIN_TILE_ROWS)
+    while rows < buf and -(-max(N, S) // rows) > WAVE:
+        rows *= 2
+    blocks = max(-(-N // rows), -(-S // rows), 1)
+    probes = min(range(1, PROBES_MAX + 1),
+                 key=lambda p: (search_rounds(N, p), p))
+    return rows, buf, blocks, probes
 
 
 def segment_sum_plain(values: torch.Tensor, seg: torch.Tensor,
@@ -88,16 +127,21 @@ def _check(values: torch.Tensor, seg: torch.Tensor) -> None:
 def _launch(values: torch.Tensor, seg: torch.Tensor, S: int) -> torch.Tensor:
     """One launch of ``csrc/segsum.cu`` over B lanes: values (B, N, C), seg
     (B, N) -> (B, S, C).  Reads nothing to the host: S and the grid come
-    from the shapes."""
+    from the shapes.  ``values`` may start at any element: the kernel
+    stages an unaligned view element by element."""
     _check(values, seg)
     B, N, C = values.shape
     dev = values.device
     out = torch.empty((B, S, C), dtype=values.dtype, device=dev)
     if out.numel() == 0:
         return out
+    if B > 65535:
+        raise ValueError(f"segment_sum: {B} lanes, the kernel takes 65535")
+    rows, buf, blocks, probes = segsum_geometry(N, S, C,
+                                                values.element_size())
     SEGSUM.launch(
         values.data_ptr(), seg.data_ptr(), B, N, S, C,
-        int(values.dtype == torch.float64), segsum_geometry(B, S, C),
+        int(values.dtype == torch.float64), rows, buf, blocks, probes,
         out.data_ptr(), dev.index, torch.cuda.current_stream(dev).cuda_stream,
     )
     return out

@@ -232,6 +232,30 @@ def voxel_downsample_rings_runs(
     return out_xyz, out_rel, keep & (cnt > 0)
 
 
+def compact(
+    values: torch.Tensor,
+    mask: torch.Tensor,
+    capacity: int,
+    keys: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Gather masked rows to the front, optionally ordered by ``keys``.
+
+    Returns (gather_indices (capacity,), out_mask (capacity,), order) where
+    ``values[gather_indices]`` is the compacted array: a stable argsort of
+    the keys (the row index by default) with masked-out rows keyed past
+    every live one (2**31 - 1, the JAX package's int32 sentinel).
+    ``values`` is only used for its leading dimension."""
+    n = values.shape[0]
+    dev = mask.device
+    if keys is None:
+        keys = torch.arange(n, dtype=torch.int32, device=dev)
+    sort_key = torch.where(mask, keys, torch.full_like(keys, 2**31 - 1))
+    order = torch.argsort(sort_key, stable=True)
+    count = mask.to(torch.int64).sum()
+    out_mask = torch.arange(capacity, device=dev) < count
+    return order[:capacity], out_mask, order
+
+
 def compact_rows(
     mask: torch.Tensor,
     capacity: int,

@@ -1116,20 +1116,78 @@ SEGSUM_SHAPES = [(115200, 5, 115200), (270336, 5, 262144),
                  (32768, 18, 8192)]
 
 
+def segsum_edge_case(case, device):
+    """(values, seg, S) of one edge of segsum.cu's tiles (64-512 rows,
+    ``segsum_geometry``): no rows; rows all in the dump slot; one slot; a
+    segment over three tiles or more; the last live row a tile's last row;
+    262144 slots ~6 % live (long empty runs, a long empty tail); float64
+    rows 18 wide (144 bytes, the refinement's blocks); float64 rows 600
+    wide (4 rows a tile); values a view 20 bytes past a 16-byte
+    boundary."""
+    rng = np.random.default_rng(len(case))
+    dtype = torch.float32
+    if case == "no rows":
+        S, seg = 300, np.zeros(0, np.int64)
+    elif case == "dump rows only":
+        S, seg = 77, np.full(900, 77)
+    elif case == "one slot":
+        S, seg = 1, np.r_[np.zeros(500, np.int64), np.ones(200, np.int64)]
+    elif case == "segment over three tiles":
+        S, seg = 400, np.r_[np.arange(100), np.full(600, 100),
+                            np.arange(101, 300), np.full(50, 400)]
+    elif case == "last live row at a tile end":
+        S, seg = 400, np.r_[np.sort(rng.integers(0, 200, 512)),
+                            np.full(300, 400)]
+    elif case == "262144 slots 6% live":
+        S = 262144
+        live = np.sort(rng.choice(S, S * 6 // 100, replace=False))
+        seg = np.r_[np.repeat(live, rng.integers(1, 3, live.size)),
+                    np.full(8192, S)]
+    elif case in ("float64 18 wide", "float64 600 wide"):
+        C = 18 if case == "float64 18 wide" else 600
+        values, seg = segsum_inputs(3000, C, 700, 7, torch.float64, device)
+        return values, seg, 700
+    else:  # "unaligned view"
+        values, seg = segsum_inputs(32768, 5, 8192, 8, device=device)
+        padded = torch.cat([values.new_zeros(1, 5), values])
+        assert padded[1:].data_ptr() % 16 == 4
+        return padded[1:], seg, 8192
+    C = 4 if case == "one slot" else 5
+    values = rng.normal(0.0, 50.0, (len(seg), C))
+    return (torch.as_tensor(values, dtype=dtype).to(device),
+            torch.as_tensor(seg, dtype=torch.int64).to(device), S)
+
+
+SEGSUM_EDGES = ["no rows", "dump rows only", "one slot",
+                "segment over three tiles", "last live row at a tile end",
+                "262144 slots 6% live", "float64 18 wide", "float64 600 wide",
+                "unaligned view"]
+SEGSUM_CASES = (
+    [pytest.param(("shape", N, C, S, dtype),
+                  id=f"{N}-{C}-{S}-{str(dtype)[6:]}")
+     for N, C, S in SEGSUM_SHAPES for dtype in (torch.float32, torch.float64)]
+    + [pytest.param(("edge", case), id=case.replace(" ", "-"))
+       for case in SEGSUM_EDGES])
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("N,C,S", SEGSUM_SHAPES)
-@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
-def test_segment_sum_kernel_equals_plain(cuda, N, C, S, dtype):
+@pytest.mark.parametrize("case", SEGSUM_CASES)
+def test_segment_sum_kernel_equals_plain(cuda, case):
     """The kernel bit for bit the plain version on CPU copies of its
     inputs (a left fold in row order, the kernel's order), and the same
-    bits on a second launch; one launch counted per call."""
-    values, seg = segsum_inputs(N, C, S, N + C, dtype, cuda)
+    bits on a second launch; one launch counted per call.  The main path's
+    shapes, then the edges of the kernel's tiles (``segsum_edge_case``)."""
+    if case[0] == "shape":
+        _, N, C, S, dtype = case
+        values, seg = segsum_inputs(N, C, S, N + C, dtype, cuda)
+    else:
+        values, seg, S = segsum_edge_case(case[1], cuda)
     before = SEGSUM.launches
     got = segment_sum(values, seg, S)
     again = segment_sum(values, seg, S)
     torch.cuda.synchronize()
     assert SEGSUM.launches == before + 2
-    assert got.shape == (S, C) and got.dtype == dtype
+    assert got.shape == (S, values.shape[1]) and got.dtype == values.dtype
     want = segment_sum_plain(values.cpu(), seg.cpu(), S)
     np.testing.assert_array_equal(got.cpu().numpy(), want.numpy())
     assert torch.equal(got, again)

@@ -9,7 +9,9 @@ landmark, are held bit for bit to the ``index_add`` over the unsorted rows
 that computed them before (``_blocks_by_index_add``).  The JAX twins of the
 call sites are tests/test_torch_voxel.py, the merge twins of
 tests/test_torch_mapping.py and tests/test_torch_refine.py; the kernel
-itself runs in tests/test_torch_cuda.py.
+itself runs in tests/test_torch_cuda.py.  Which block of the kernel writes
+each slot and reads each row is modelled here in numpy, with the wrapper's
+geometry.
 """
 
 import re
@@ -204,20 +206,161 @@ def test_refinement_blocks_equal_the_index_add(case):
 
 
 def test_geometry_follows_the_kernel_source():
-    """The wrapper's copies of segsum.cu's block size and wide column group
-    match the source, and the wide group is taken where the slots alone
-    fill the card: the rings and the store re-sorts at the flagship shapes,
-    not the stacks, the store reduce or one refinement call."""
+    """The wrapper's copies of segsum.cu's constants match the source, and
+    its geometry at the main path's shapes: 512 rows staged at a time up to
+    12-wide float32 rows, fewer for wider ones; tiles of 64 rows where the
+    grid then fits one wave (132 SMs x MIN_BLOCKS), larger where not (the
+    rings, the re-sorts, the anchors, the surf and keyframe stacks); blocks
+    for every row and for the slots; the fewest probes that give the fewest
+    search rounds (two at every main-path shape)."""
     src = (Path(cs.__file__).resolve().parent.parent / "csrc"
            / "segsum.cu").read_text()
-    threads = int(re.search(r"constexpr int THREADS = (\d+);", src).group(1))
-    assert cs.FILL_THREADS == 132 * threads
-    assert f"case {cs.WIDE_GROUP}:" in src and "case 1:" in src
-    wide = {(1, 147456, 5), (1, 131072, 5), (1, 262144, 5), (4, 6144, 18),
-            (4, 147456, 5)}
-    narrow = {(1, 2048, 5), (1, 8192, 5), (1, 8192, 4), (1, 512, 12),
-              (1, 6144, 18), (4, 8192, 4)}
-    for shape in wide:
-        assert cs.segsum_geometry(*shape) == cs.WIDE_GROUP, shape
-    for shape in narrow:
-        assert cs.segsum_geometry(*shape) == 1, shape
+
+    def constant(name):
+        return int(re.search(rf"constexpr int {name} = (\d+);", src).group(1))
+
+    assert cs.THREADS == constant("THREADS")
+    assert "constexpr int TILE_ROWS = THREADS * ROWS_PER_THREAD;" in src
+    assert cs.TILE_ROWS == cs.THREADS * constant("ROWS_PER_THREAD")
+    assert cs.TILE_BYTES == constant("TILE_BYTES")
+    assert cs.PROBES_MAX == constant("PROBES_MAX")
+    assert cs.MIN_BLOCKS == constant("MIN_BLOCKS")
+    assert "__launch_bounds__(THREADS, MIN_BLOCKS)" in src
+    # the shapes of chip_smoke.py phase 3c: (N, S, C, itemsize) -> geometry
+    want = {(147456, 147456, 5, 4): (256, 512, 576, 3),
+            (270336, 262144, 5, 4): (512, 512, 528, 5),
+            (133120, 131072, 5, 4): (256, 512, 520, 3),
+            (65536, 8192, 5, 4): (128, 512, 512, 1),
+            (7680, 2048, 5, 4): (64, 512, 120, 1),
+            (2048, 2048, 4, 4): (64, 512, 32, 1),
+            (262144, 512, 5, 4): (512, 512, 512, 4),
+            (24576, 512, 12, 4): (64, 512, 384, 1),
+            (24576, 6144, 18, 8): (64, 128, 384, 1),
+            (3000, 700, 600, 8): (4, 4, 750, 1),
+            (0, 300, 5, 4): (64, 512, 5, 1)}
+    for shape, geometry in want.items():
+        assert cs.segsum_geometry(*shape) == geometry, shape
+        rows, buf, blocks, probes = geometry
+        assert rows <= buf and (buf + 1) * shape[2] * shape[3] <= cs.TILE_BYTES
+        assert blocks * rows >= max(shape[0], shape[1])
+        assert blocks <= cs.WAVE or rows == buf
+        assert cs.search_rounds(shape[0], probes) <= 2
+    with pytest.raises(ValueError, match="limit"):
+        cs.segsum_geometry(100, 10, cs.TILE_BYTES // 8, 8)
+
+
+def ownership(seg: np.ndarray, S: int, C: int, itemsize: int):
+    """A numpy model of who writes and reads what in one lane of segsum.cu,
+    block by block, with the wrapper's geometry: returns (writes per slot,
+    reads per row).  Block x holds rows [x T, x T + T).  When the row
+    before its tile is in the dump slot, it searches for the lane's live
+    count L (the kernel's rounds: THREADS probes, then probes x THREADS)
+    and u = seg[L - 1] + 1; else its heads write their slots and the empty
+    slots since the previous row's, its last segment, if it runs past the
+    tile, is read on to its end, and L = x T + its live rows if the tile
+    has a dump row or is the last.  The blocks from x_b = min(L // T, X -
+    1) on zero [u, S) in X - x_b runs of equal length."""
+    N = len(seg)
+    T, B_rows, X, probes = cs.segsum_geometry(N, S, C, itemsize)
+    writes, reads = np.zeros(S, np.int64), np.zeros(N, np.int64)
+    L_true = int((seg < S).sum())
+
+    def search():
+        lo, hi, top, P = 0, N, -1, cs.THREADS
+        while lo < hi:
+            step = -(-(hi - lo) // P)
+            q = lo + np.arange(P) * step
+            q = q[q < hi]
+            live = seg[q] < S
+            c = int(live.sum())
+            assert live[:c].all()  # the live probes are a prefix
+            if c:
+                top = max(top, int(seg[q[live]].max()))
+                lo, hi = lo + (c - 1) * step + 1, min(lo + c * step, hi)
+            else:
+                hi = lo
+            P = probes * cs.THREADS
+        return lo, top + 1 if lo else 0
+
+    def share(u, xb, x):
+        xb = min(xb, X - 1)
+        Z = -(-(S - u) // (X - xb))
+        z0 = min(u + (x - xb) * Z, S)
+        writes[z0:min(z0 + Z, S)] += 1
+
+    for x in range(X):
+        t0 = x * T
+        before = -1 if t0 == 0 else seg[t0 - 1] if t0 <= N else S
+        if before >= S:
+            L, u = search()
+            assert L == L_true and u == (seg[L - 1] + 1 if L else 0)
+            share(u, L // T, x)
+            continue
+        tile = seg[t0:t0 + T]
+        prev = np.r_[before, tile[:-1]]
+        heads = np.flatnonzero((tile < S) & (tile != prev))
+        live_rows = int((tile < S).sum())
+        for h, r in enumerate(heads):
+            s = tile[r]
+            writes[prev[r] + 1:s] += 1
+            writes[s] += 1
+            end = heads[h + 1] if h + 1 < len(heads) else live_rows
+            if h + 1 == len(heads) and end == len(tile):
+                while t0 + end < N and seg[t0 + end] == s:
+                    end += 1  # read on past the tile
+            reads[t0 + r:t0 + end] += 1
+        if live_rows < T or x == X - 1:
+            assert t0 + live_rows == L_true
+            u = (tile[live_rows - 1] if live_rows else before) + 1
+            share(u, x, x)
+    return writes, reads
+
+
+def edge_patterns():
+    """(name, seg, S, C, itemsize): the card tests' edges of the tiles
+    (tests/test_torch_cuda.py segsum_edge_case) and the shapes of the
+    main path, with long runs of one slot and of empty slots."""
+    rng = np.random.default_rng(11)
+    S6 = 262144
+    live6 = np.sort(rng.choice(S6, S6 * 6 // 100, replace=False))
+    yield "no rows", np.zeros(0, np.int64), 300, 5, 4
+    yield "dump rows only", np.full(900, 77), 77, 5, 4
+    yield "one slot", np.r_[np.zeros(500, np.int64), np.ones(200)], 1, 4, 4
+    yield ("segment over three tiles",
+           np.r_[np.arange(100), np.full(600, 100), np.arange(101, 300),
+                 np.full(50, 400)], 400, 5, 4)
+    yield ("last live row at a tile end",
+           np.r_[np.sort(rng.integers(0, 200, 512)), np.full(300, 400)],
+           400, 5, 4)
+    yield ("262144 slots 6% live",
+           np.r_[np.repeat(live6, rng.integers(1, 3, live6.size)),
+                 np.full(8192, S6)], S6, 5, 4)
+    yield ("first slot past the first tile, no dump rows",
+           np.r_[np.full(10, 5000), np.full(20, 9000)], 12000, 5, 4)
+    yield ("float64 600 wide",
+           np.minimum(np.sort(rng.integers(0, 800, 3000)), 700), 700, 600, 8)
+    for N, C, S in ((147456, 5, 147456), (270336, 5, 262144),
+                    (24576, 12, 512), (24576, 18, 6144)):
+        live = (2 * N) // 3
+        lengths = rng.integers(1, 9, live // 5)
+        lengths[len(lengths) // 2] = 2000
+        slots = np.minimum(np.sort(rng.integers(0, S + S // 4 + 1,
+                                                len(lengths))), S)
+        seg = np.repeat(slots, lengths)[:live]
+        yield (f"{N}x{C}->{S}", np.r_[seg, np.full(N - len(seg), S)], S, C,
+               8 if C == 18 else 4)
+
+
+@pytest.mark.parametrize("pattern", list(edge_patterns()),
+                         ids=lambda p: p[0].replace(" ", "-"))
+def test_every_slot_written_once_every_live_row_read_once(pattern):
+    """segsum.cu's ownership, modelled in numpy with the wrapper's tile
+    constants (``ownership``): each of the S slots is written exactly once
+    (no memset needed, no write raced), each live row's values are read
+    exactly once and no dump row's at all."""
+    _, seg, S, C, itemsize = pattern
+    seg = seg.astype(np.int64)
+    assert (np.diff(seg) >= 0).all() and (seg.size == 0 or seg.max() <= S)
+    writes, reads = ownership(seg, S, C, itemsize)
+    np.testing.assert_array_equal(writes, np.ones(S, np.int64))
+    np.testing.assert_array_equal(reads, (seg < S).astype(np.int64))

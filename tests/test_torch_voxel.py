@@ -88,6 +88,28 @@ def test_compact_rows_matches_jax(capacity):
         np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+@pytest.mark.parametrize("capacity", [4096, 700])
+@pytest.mark.parametrize("with_keys", [False, True])
+def test_compact_matches_jax(with_keys, capacity):
+    """``compact``'s gather indices, mask and full order bitwise the JAX
+    package's: a stable argsort, so equal keys keep their row order."""
+    rng = np.random.default_rng(4)
+    n = 3000
+    mask = rng.random(n) < 0.4
+    values = rng.normal(size=(n, 3)).astype(np.float32)
+    keys = (rng.integers(0, 200, n).astype(np.int32) if with_keys else None)
+    j = jv.compact(jnp.asarray(values), jnp.asarray(mask), capacity,
+                   None if keys is None else jnp.asarray(keys))
+    t = tv.compact(*_t(values, mask), capacity,
+                   None if keys is None else torch.as_tensor(keys))
+    for a, b in zip(t, j):
+        np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+    idx, out_mask, _ = t
+    live = int(mask.sum())
+    assert int(out_mask.sum()) == min(live, capacity)
+    assert mask[idx[:live].numpy()].all()
+
+
 def test_simulate_scan_copy_is_bitwise_identical():
     pj = jsyn.simulate_scan(jsyn.World.urban(seed=3), np.array([1.0, 0.5, 0.0]),
                             n_azimuth=400, noise=0.01, seed=7)
