@@ -21,7 +21,8 @@ exception and a non-zero exit):
      bound; then 4 and 8 lanes of R = 10, K = 163 under ``torch.vmap`` (one
      launch of R = 40 and 80), equal to 4 and 8 single launches;
  3c. segment_sum (csrc/segsum.cu, the ordered voxel, store and refinement
-     sums; no Pallas twin): phase 5's 12 frames staged and a refinement of
+     sums; no Pallas twin): phase 5's 12 frames staged op by op
+     (``stages.eager()``, so every call is seen) and a refinement of
      their keyframes with every call recorded, then at each call site's
      shapes the kernel bit for bit its plain version on the CPU, timed per
      call and per launch on the device beside its bound, the plain version
@@ -30,9 +31,11 @@ exception and a non-zero exit):
      calls of each site as lanes of one launch under ``torch.vmap``; the
      longest live segment of each site;
   5. the flagship pipeline (HDL64_KITTI, full widths) over 12 synthetic
-     frames on the card: kernel launch counts, finite poses, every mapped
-     position within 5 cm of the JAX package's, per-stage device ms and
-     frames/s;
+     frames on the card, staged, each stage one captured CUDA graph
+     (models/stages.py) as the JAX package jits each: kernel launch
+     counts, finite poses, every mapped position within 5 cm of the JAX
+     package's, per-stage device ms and frames/s (phases 6-8, 11, 12, 16
+     and 17 run their staged frames the same way);
   6. the same with the mapping-stage vote on (``vote_mode="simple"``,
      ``vote_start_frame=2``) over 10 frames: compat_votes also runs at
      K = 829, twice per mapped frame; the same checks against the JAX
@@ -62,13 +65,15 @@ exception and a non-zero exit):
      files equal, the fused file within its digits of phase 9, ATE against
      the ground truth under 0.30 m;
  11. checkpoint and export, under deterministic sums: a staged run saved
-     after frame 6 and loaded into a fresh Pipeline gives the uninterrupted
+     after frame 6 and loaded into a fresh Pipeline (whose stage replays
+     copy the loaded states in) gives the uninterrupted
      run's frame 7 within 1e-5, the uninterrupted run phase 5's first 8
      frames bitwise, and ``export_map`` writes two PLY files with the
      stores' live counts;
  12. repeatability: the 12 frames staged, fused per frame and chunked under
      ``torch.use_deterministic_algorithms`` and with PyTorch's default
-     settings (staged twice), every run bitwise equal to every other and
+     settings (staged twice, and once op by op under ``stages.eager()``),
+     every run bitwise equal to every other and
      to phases 5 and 9, with the frames/s and ``fused_step`` ms of both
      settings;
  13. the batched lanes (models/batch.py): B flagship sequences per step,
@@ -130,15 +135,28 @@ exception and a non-zero exit):
  16. the "runs" less-flat downsample (``scan.lessflat_mode="runs"``) over
      phase 5's 12 frames, staged and fused: mapped positions within 5 cm of
      the JAX package's runs-mode run, staged and fused bitwise equal, frame
-     0's less-flat live count in both modes, stream ms per stage.
+     0's less-flat live count in both modes, stream ms per stage;
+ 17. the captured stages: each stage's warm-up and capture seconds and
+     launches per replay; phase 5's captured run bitwise phase 12's op-by-op
+     run (odometry and mapped positions); the 12 frames with
+     ``sync_mapping=False`` (dropped frames counted, retired poses finite)
+     and with ``skip_frame_num=2`` (within 5 cm of the JAX package's
+     skip-2 positions); stream ms per stage, frames/s and peak memory of
+     each run;
+ 18. the VLP16 profile at full width (16 rings, 65536-point frames) over 8
+     frames, staged (captured) and fused: within 5 cm of the JAX package's
+     positions, staged and fused bitwise equal.
 
-Launch counts: each kernel's wrapper counts its own launches, and every
-staged phase checks them against the counts derived from its config.  A
-graph replay goes past the wrappers: the fused phases check that the
-wrappers counted nothing but the host loop's keyframe stack (one
-segment_sum a frame, outside the graph), and report replays times the
-launches counted at capture, which a traced replay confirms kernel by
-kernel.
+Launch counts: each kernel's wrapper counts its own launches, and each
+graph counts what its wrappers launched while it was captured.  A graph
+replay goes past the wrappers: every phase that drives the Pipeline
+captures its graphs before it zeroes the counts, checks that the wrappers
+counted nothing but the host loop's keyframe stack (one segment_sum a
+mapped frame, outside the graphs), and that replays times the launches
+counted at capture, summed over the fused graph or the three stage graphs,
+match the counts derived from its config; a traced replay of the fused
+frame confirms them kernel by kernel.  A run under ``stages.eager()``
+checks the wrappers' counts against the config's alone.
 
 The last three lines are a JSON object with each kernel's numbers
 (``launches`` from the wrappers over the main-path phases, ``graph_launches``
@@ -173,9 +191,8 @@ import torch.distributed as dist
 from light_loam_tpu_torch.core.frame import PointCloud
 from light_loam_tpu_torch.io.evaluation import ate_rmse
 from light_loam_tpu_torch.io.kitti import gt_to_lidar_frame, read_gt_poses
-from light_loam_tpu_torch.models import batch, fused, mapping
+from light_loam_tpu_torch.models import batch, fused, mapping, stages
 from light_loam_tpu_torch.models import refine as refine_module
-from light_loam_tpu_torch.models import pipeline as pipeline_module
 from light_loam_tpu_torch.models.mapping import MappingState
 from light_loam_tpu_torch.models.odometry import OdometryState
 from light_loam_tpu_torch.models.refine import (
@@ -337,6 +354,30 @@ JAX_RUNS_MAPPED_POSITIONS = np.array([
     [9.998428344726562, 0.20652428269386292, 0.003075742395594716],
     [11.003267288208008, 0.23232193291187286, 0.005121775437146425],
 ])
+# Phase 17: the JAX package's mapped positions (m) of phase 5's 12 frames
+# with skip_frame_num=2 (frames 0, 2, ..., 10 map), and phase 18's: the
+# VLP16 profile at full width over 8 frames, both staged on the CPU,
+# produced by:
+#   JAX_PLATFORMS=cpu PYTHONPATH=. python scripts/jax_staged_positions.py
+JAX_SKIP2_MAPPED_POSITIONS = np.array([
+    [0.0, 0.0, 0.0],
+    [2.0050134658813477, 0.03829414024949074, 0.0009540116880089045],
+    [4.0080060958862305, 0.08255626261234283, 0.0027143044862896204],
+    [6.004512786865234, 0.12746214866638184, 0.004351604264229536],
+    [8.003835678100586, 0.15310941636562347, 0.005098867695778608],
+    [10.001145362854004, 0.2015083283185959, 0.007253367453813553],
+])
+JAX_VLP16_MAPPED_POSITIONS = np.array([
+    [0.0, 0.0, 0.0],
+    [0.9776029586791992, 0.020056141540408134, 8.73321114340797e-05],
+    [1.9649015665054321, 0.042787522077560425, 0.004562862683087587],
+    [2.9581477642059326, 0.06575842946767807, 0.0032315212301909924],
+    [3.9504969120025635, 0.08247250318527222, 0.0032194540835916996],
+    [4.942986011505127, 0.10520456731319427, 0.0013605817221105099],
+    [5.932966232299805, 0.12257615476846695, 0.0035316033754497766],
+    [6.93055534362793, 0.14661595225334167, 0.0033690757118165493],
+])
+VLP16_N_FRAMES = 8
 POSITION_TOL_M = 0.05
 # Runs on the same card.  The fused and the chunked frame run the staged
 # path's own stage functions, and the voxel, store and refinement sums are
@@ -842,8 +883,8 @@ def segsum_bound(values, seg, S) -> tuple:
 
 
 def phase_segsum(dev) -> dict:
-    """Phase 3c: phase 5's 12 frames staged and a refinement of their
-    keyframes, with every segment_sum call recorded; then at each call
+    """Phase 3c: phase 5's 12 frames staged (op by op) and a refinement of
+    their keyframes, with every segment_sum call recorded; then at each call
     site's shapes the kernel against its plain version (on the CPU copies:
     bit for bit), device ms, ms per call, the plain version on the card
     (index_add_ with atomics), the bound and the library calls on the same
@@ -857,7 +898,9 @@ def phase_segsum(dev) -> dict:
     frames = list(synthetic_frames(N_FRAMES, cfg, n_azimuth=1800, speed=1.0,
                                    seed=0))
     pipe = Pipeline(cfg, device="cuda")
-    with SegsumRecorder() as rec:
+    # op by op, so that every call reaches the recorder (a replay would
+    # pass it by)
+    with SegsumRecorder() as rec, stages.eager():
         for _, xyz, mask in frames:
             pipe.process_frame(xyz, mask)
         pipe.refine_recent_keyframes(n_keyframes=REFINE_WINDOWS[-1],
@@ -966,10 +1009,11 @@ def _segsum_lanes(site, calls) -> dict:
     return v
 
 
-def mapping_vote_config():
-    """The flagship profile with the mapping-stage vote on from the third
-    mapped frame (the profile itself keeps it off, as the reference does)."""
-    base = PROFILES["hdl64"]
+def mapping_vote_config(base=None):
+    """``base`` (the flagship profile by default) with the mapping-stage
+    vote on from the third mapped frame (the profile itself keeps it off,
+    as the reference does)."""
+    base = base or PROFILES["hdl64"]
     return dataclasses.replace(base, mapping=dataclasses.replace(
         base.mapping, vote_mode="simple", vote_start_frame=2))
 
@@ -990,18 +1034,19 @@ def latent_vote_config(base=None):
                                     vote_start_frame=2))
 
 
-def undistort_config():
-    """The flagship profile with the distortion hook and the occlusion
-    filter on."""
-    base = PROFILES["hdl64"]
+def undistort_config(base=None):
+    """``base`` (the flagship profile by default) with the distortion hook
+    and the occlusion filter on."""
+    base = base or PROFILES["hdl64"]
     return dataclasses.replace(
         base, odometry=dataclasses.replace(base.odometry, distortion=True),
         scan=dataclasses.replace(base.scan, occlusion_filter=True))
 
 
-def runs_config():
-    """The flagship profile with the "runs" less-flat downsample."""
-    base = PROFILES["hdl64"]
+def runs_config(base=None):
+    """``base`` (the flagship profile by default) with the "runs" less-flat
+    downsample."""
+    base = base or PROFILES["hdl64"]
     return dataclasses.replace(
         base, scan=dataclasses.replace(base.scan, lessflat_mode="runs"))
 
@@ -1083,42 +1128,62 @@ def replay_kernel_counts(graph) -> tuple:
     return counts, len(kernels), kernel_ms, wall_ms, top
 
 
-def phase_pipeline(tag, cfg, n_frames, jax_positions, kernels) -> dict:
+def run_graphs(cfg, eager=False) -> list:
+    """The graphs a Pipeline under ``cfg`` replays, captured now where not
+    yet: the fused frame, or the three stages of the staged frame (none
+    under ``stages.eager()``)."""
+    if cfg.fused_step:
+        return [fused.frame_graph(cfg, "cuda")]
+    return [] if eager else list(stages.stage_graphs(cfg, "cuda"))
+
+
+def graph_launches_since(graphs, replays) -> dict:
+    """Launches made through the graphs' replays since their replay counts
+    were ``replays``: each replay launches what the wrappers counted at
+    its capture."""
+    names = [k.source.name for k in (KNN5, VOTE, SEGSUM)]
+    return {name: sum(g.kernel_launches[name] * (g.replays - r)
+                      for g, r in zip(graphs, replays)) for name in names}
+
+
+def phase_pipeline(tag, cfg, n_frames, jax_positions, kernels,
+                   eager=False) -> dict:
     """Drive ``n_frames`` flagship frames under ``cfg`` and hold them to
-    ``jax_positions``; returns the launch counts of this run (the wrappers'
-    own, and those made through graph replays) and the mean stream ms per
-    stage."""
+    ``jax_positions`` (None: finite positions only); returns the launch
+    counts of this run (the wrappers' own, and those made through graph
+    replays), the mean stream ms per stage and the graphs' numbers.  The
+    staged path replays its three captured stages, or with ``eager`` runs
+    them op by op (``stages.eager()``)."""
     frames = list(synthetic_frames(n_frames, cfg, n_azimuth=1800, speed=1.0,
                                    seed=0))
-    graph = fused.frame_graph(cfg, "cuda") if cfg.fused_step else None
-    replays = graph.replays if graph else 0
+    torch.cuda.reset_peak_memory_stats()
+    graphs = run_graphs(cfg, eager)
+    replays = [g.replays for g in graphs]
     pipe = Pipeline(cfg, device="cuda")
     for k in kernels:
         k.launches = 0
     results = []
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    for i, (_, xyz, mask) in enumerate(frames):
-        results.append(pipe.process_frame(xyz, mask))
-        if i == 0:
-            # steady state: later frames only (the first warms allocator
-            # and kernel caches)
-            torch.cuda.synchronize()
-            pipe.timers.reset()
-            t1 = time.perf_counter()
-    positions = pipe.mapped_positions()
+    with stages.eager() if eager else contextlib.nullcontext():
+        for i, (_, xyz, mask) in enumerate(frames):
+            results.append(pipe.process_frame(xyz, mask))
+            if i == 0:
+                # steady state: later frames only (the first warms
+                # allocator and kernel caches)
+                torch.cuda.synchronize()
+                pipe.timers.reset()
+                t1 = time.perf_counter()
+        positions = pipe.mapped_positions()
     torch.cuda.synchronize()
     t_end = time.perf_counter()
     launches = {k.source.name: k.launches for k in kernels}
     nothing = dict.fromkeys(launches, 0)
-    replays = graph.replays - replays if graph else 0
-    graph_launches = ({name: n * replays
-                       for name, n in graph.kernel_launches.items()}
-                      if graph else nothing)
+    graph_launches = graph_launches_since(graphs, replays)
+    n_replays = sum(g.replays - r for g, r in zip(graphs, replays))
 
     n_mapped = sum(r.mapped for r in results)
-    if graph:
+    if graphs:
         eager_want = keyframe_launches(n_mapped)
         graph_want = expected_launches(cfg, n_frames, n_mapped, keyframes=0)
     else:
@@ -1127,39 +1192,51 @@ def phase_pipeline(tag, cfg, n_frames, jax_positions, kernels) -> dict:
     if launches != eager_want or graph_launches != graph_want:
         raise AssertionError(
             f"launches counted by the wrappers {launches} != {eager_want}, or "
-            f"through {replays} graph replays {graph_launches} != "
+            f"through {n_replays} graph replays {graph_launches} != "
             f"{graph_want}: derived from the config for {n_frames} frames, "
             f"{n_mapped} mapped")
     for r in results:
         if not (np.isfinite(r.odom_q).all() and np.isfinite(r.odom_t).all()):
             raise AssertionError(f"frame {r.frame}: non-finite odometry pose")
-    if positions.shape != jax_positions.shape or not np.isfinite(
-            positions).all():
-        raise AssertionError(f"mapped positions {positions.shape} not "
-                             f"finite {jax_positions.shape}")
-    dev_m = np.linalg.norm(positions - jax_positions, axis=1)
-    if (dev_m > POSITION_TOL_M).any():
-        raise AssertionError(
-            f"mapped positions deviate from the JAX package's by up to "
-            f"{dev_m.max():.4f} m (> {POSITION_TOL_M} m): {dev_m.tolist()}")
-    stages = {n: s.mean_ms for n, s in pipe.timers.device_report().items()}
+    if len(positions) != n_mapped or not np.isfinite(positions).all():
+        raise AssertionError(f"{len(positions)} mapped positions of "
+                             f"{n_mapped} mapped frames, or not finite")
+    dev_m = np.zeros(1)
+    if jax_positions is not None:
+        if positions.shape != jax_positions.shape:
+            raise AssertionError(f"mapped positions {positions.shape}, the "
+                                 f"JAX package's {jax_positions.shape}")
+        dev_m = np.linalg.norm(positions - jax_positions, axis=1)
+        if (dev_m > POSITION_TOL_M).any():
+            raise AssertionError(
+                f"mapped positions deviate from the JAX package's by up to "
+                f"{dev_m.max():.4f} m (> {POSITION_TOL_M} m): {dev_m.tolist()}")
+    stage_ms = {n: s.mean_ms for n, s in pipe.timers.device_report().items()}
     fps = (n_frames - 1) / (t_end - t1)
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
     o = cfg.odometry
-    print(f"[{tag}] hdl64 {n_frames} frames, {n_mapped} mapped, "
-          f"{'fused' if cfg.fused_step else 'staged'}, votes "
-          f"plane {o.plane_vote_mode} corner {o.corner_vote_mode} mapping "
-          f"{cfg.mapping.vote_mode}, surf search {o.surf_knn}, distortion "
-          f"{o.distortion}, occlusion filter {cfg.scan.occlusion_filter} | "
-          f"launches counted by the wrappers {launches}, through {replays} "
-          f"graph replays {graph_launches} | peak memory "
-          f"{torch.cuda.max_memory_allocated() / 2**20:.0f} MiB | max "
-          f"|mapped - jax| {dev_m.max():.4f} m | "
-          + " ".join(f"{n} {ms:.2f}ms" for n, ms in sorted(stages.items()))
+    path = ("fused" if cfg.fused_step else "staged, op by op" if eager
+            else "staged, 3 captured stages")
+    print(f"[{tag}] {cfg.scan.n_scans} rings, {n_frames} frames, {n_mapped} "
+          f"mapped, {pipe.dropped_mapping_frames} dropped, {path}, "
+          f"skip_frame_num {o.skip_frame_num}, sync_mapping "
+          f"{cfg.sync_mapping}, votes plane {o.plane_vote_mode} corner "
+          f"{o.corner_vote_mode} mapping {cfg.mapping.vote_mode}, surf search "
+          f"{o.surf_knn}, distortion {o.distortion}, occlusion filter "
+          f"{cfg.scan.occlusion_filter} | launches counted by the wrappers "
+          f"{launches}, through {n_replays} graph replays {graph_launches} | "
+          f"peak memory {peak_mib:.0f} MiB (graphs captured here included) | "
+          + (f"max |mapped - jax| {dev_m.max():.4f} m | "
+             if jax_positions is not None else "")
+          + " ".join(f"{n} {ms:.2f}ms" for n, ms in sorted(stage_ms.items()))
           + f" (stream, mean of frames 2-{n_frames}) | {fps:.2f} frames/s "
           f"(host wall, frames 2-{n_frames}; first frame "
           f"{(t1 - t0) * 1e3:.0f} ms)")
     return dict(launches=launches, graph_launches=graph_launches,
-                stages=stages, positions=positions, fps=fps, pipe=pipe)
+                stages=stage_ms, positions=positions, fps=fps, pipe=pipe,
+                odometry=np.stack([r.odom_t for r in results]),
+                graphs=graphs, peak_mib=peak_mib,
+                dropped=pipe.dropped_mapping_frames, n_mapped=n_mapped)
 
 
 FULL_VOTE_SHAPES = ((10, 163), (10, 829))
@@ -1448,11 +1525,14 @@ def deterministic_sums():
 
 def phase_checkpoint(kernels, p5) -> dict:
     """Phase 11, under deterministic sums: save after frame 6, resume in a
-    fresh Pipeline, compare frame 7; export the map as PLY.  The
+    fresh Pipeline (whose stage replays copy the loaded state in), compare
+    frame 7; export the map as PLY.  The
     uninterrupted run repeats phase 5's first 8 frames, with PyTorch's
     default settings: held to that run bitwise."""
     cfg = PROFILES["hdl64"]
     frames = list(synthetic_frames(8, cfg, n_azimuth=1800, speed=1.0, seed=0))
+    graphs = run_graphs(cfg)
+    replays = [g.replays for g in graphs]
     for k in kernels:
         k.launches = 0
     torch.cuda.reset_peak_memory_stats()
@@ -1491,18 +1571,21 @@ def phase_checkpoint(kernels, p5) -> dict:
                 raise AssertionError(f"{name} PLY: {counts[name]} points, "
                                      f"{head[2]!r}, store holds {live}")
     launches = {k.source.name: k.launches for k in kernels}
-    want = expected_launches(cfg, 9, 9)
-    if launches != want:
-        raise AssertionError(f"launches {launches} != {want}")
+    graph_launches = graph_launches_since(graphs, replays)
+    want = expected_launches(cfg, 9, 9, keyframes=0)
+    if launches != keyframe_launches(9) or graph_launches != want:
+        raise AssertionError(f"launches {launches} != {keyframe_launches(9)}"
+                             f" or through replays {graph_launches} != "
+                             f"{want}")
     print(f"[11 checkpoint] deterministic sums | saved after frame 6 "
           f"({size / 2**20:.1f} MiB, {save_s:.2f} s), loaded into a fresh "
           f"Pipeline ({load_s:.2f} s) | frame 7 resumed vs uninterrupted, max "
           "abs: " + " ".join(f"{n} {g:.2e}" for n, g in gaps.items())
           + f" (limit {RESUME_TOL}) | max |staged - staged (phase 5, default "
           f"settings)| over 8 frames {rerun * 1e3:.4f} mm (limit 0) | PLY "
-          f"points {counts} | "
-          f"launches {launches}")
-    return launches
+          f"points {counts} | launches counted by the wrappers {launches}, "
+          f"through graph replays {graph_launches}")
+    return dict(launches=launches, graph_launches=graph_launches)
 
 
 def _same_frames(cfg, tag, kernels) -> dict:
@@ -1522,19 +1605,23 @@ def _same_frames(cfg, tag, kernels) -> dict:
 
 def phase_repeatable(kernels, p5, p9) -> tuple:
     """Phase 12: the 12 frames staged, fused per frame and chunked, under
-    deterministic sums and with PyTorch's default settings (staged twice);
-    every run, phase 5's and phase 9's too, bitwise equal to every other.
-    Returns the runs of both settings and the default staged and fused
-    runs."""
+    deterministic sums and with PyTorch's default settings (staged twice,
+    and once op by op); every run, phase 5's and phase 9's too, bitwise
+    equal to every other.  Returns the runs of both settings, the default
+    staged and fused runs and the op-by-op run (last)."""
     cfg = PROFILES["hdl64"]
     with deterministic_sums():
         det = _same_frames(cfg, "deterministic", kernels)
     default = _same_frames(cfg, "default settings", kernels)
     again = phase_pipeline("12 default settings, staged again", cfg,
                            N_FRAMES, JAX_MAPPED_POSITIONS, kernels)
+    eager = phase_pipeline("12 default settings, staged op by op", cfg,
+                           N_FRAMES, JAX_MAPPED_POSITIONS, kernels,
+                           eager=True)
     base = default["staged"]["positions"]
     runs = {
         "staged again (default)": again["positions"],
+        "staged op by op (default)": eager["positions"],
         "fused (default)": default["fused"]["positions"],
         "chunked (default)": default["chunked"],
         "phase 5 (staged, default)": p5["positions"],
@@ -1550,7 +1637,8 @@ def phase_repeatable(kernels, p5, p9) -> tuple:
           "0: bitwise): " + ", ".join(f"{n} {g * 1e3:.6f}"
                                       for n, g in gaps.items())
           + f" | frames/s staged default {default['staged']['fps']:.2f} and "
-          f"{again['fps']:.2f} (phase 5: {p5['fps']:.2f}), deterministic "
+          f"{again['fps']:.2f} (phase 5: {p5['fps']:.2f}), op by op "
+          f"{eager['fps']:.2f}, deterministic "
           f"{det['staged']['fps']:.2f}; fused default "
           f"{default['fused']['fps']:.2f} (phase 9: {p9['fps']:.2f}), "
           f"deterministic {det['fused']['fps']:.2f} | fused_step ms default "
@@ -1558,7 +1646,7 @@ def phase_repeatable(kernels, p5, p9) -> tuple:
           f"{p9['stages']['fused_step']:.2f}), deterministic "
           f"{det['fused']['stages']['fused_step']:.2f}")
     return (det["staged"], det["fused"], default["staged"], again,
-            default["fused"])
+            default["fused"], eager)
 
 
 # Phase 13: lanes of the batched runs, frames per lane, and the chunked and
@@ -2040,6 +2128,8 @@ def phase_refine(kernels) -> dict:
         failures.append(f"recovery: error {err_r} after, {err_c} before")
     graph = fused.frame_graph(cfg, "cuda")
     replays = graph.replays
+    staged_graphs = run_graphs(staged_cfg)
+    stage_replays = [g.replays for g in staged_graphs]
     for k in kernels:
         k.launches = 0
     pipe.cfg = staged_cfg
@@ -2047,8 +2137,11 @@ def phase_refine(kernels) -> dict:
     next_staged = float(np.linalg.norm(staged.map_t - t_ref[-1]))
     pipe.cfg = cfg
     step_launches = {k.source.name: k.launches for k in kernels}
-    if step_launches != expected_launches(staged_cfg, 1, 1):
-        failures.append(f"staged frame launched {step_launches}")
+    step_graph_launches = graph_launches_since(staged_graphs, stage_replays)
+    if (step_launches != keyframe_launches(1) or step_graph_launches
+            != expected_launches(staged_cfg, 1, 1, keyframes=0)):
+        failures.append(f"staged frame launched {step_launches}, through "
+                        f"its stages' replays {step_graph_launches}")
     # a fused frame straight after an apply: the graph must take the
     # re-anchored state, not replay its own buffers' stale correction
     _, t_ref = pipe.refine_recent_keyframes(
@@ -2065,7 +2158,8 @@ def phase_refine(kernels) -> dict:
         failures.append("the fused frame after apply=True was not one replay")
     for name in launches:
         launches[name] += step_launches[name]
-        graph_launches[name] += graph.kernel_launches[name]
+        graph_launches[name] += (graph.kernel_launches[name]
+                                 + step_graph_launches[name])
 
     with tempfile.TemporaryDirectory() as tmp:
         html = os.path.getsize(export_pipeline_html(
@@ -2207,19 +2301,19 @@ def _from_npz(z, prefix: str, like, device):
 
 
 def record_mapping_inputs(frames, device="cuda") -> tuple:
-    """The staged flagship run over ``frames`` with every ``mapping_step``
-    call recorded: ([(state before, corner_last, surf_last, q_odom, t_odom,
-    output)], the pipeline)."""
+    """The staged flagship run over ``frames`` (its stages replayed) with
+    every mapping stage recorded: ([(state before, corner_last, surf_last,
+    q_odom, t_odom, output)], the pipeline)."""
     cfg = PROFILES["hdl64"]
     calls = []
-    real = pipeline_module.mapping_step
+    real = stages.run_mapping
 
-    def record(state, corner, surf, q_odom, t_odom, mcfg):
-        new_state, out = real(state, corner, surf, q_odom, t_odom, mcfg)
+    def record(state, corner, surf, q_odom, t_odom, pcfg):
+        new_state, out = real(state, corner, surf, q_odom, t_odom, pcfg)
         calls.append((state, corner, surf, q_odom, t_odom, out))
         return new_state, out
 
-    pipeline_module.mapping_step = record
+    stages.run_mapping = record
     try:
         pipe = Pipeline(cfg, device=device)
         for i, (_, xyz, mask) in enumerate(frames):
@@ -2229,7 +2323,7 @@ def record_mapping_inputs(frames, device="cuda") -> tuple:
                 pipe.timers.reset()
         torch.cuda.synchronize()
     finally:
-        pipeline_module.mapping_step = real
+        stages.run_mapping = real
     if len(calls) != len(frames):
         raise AssertionError(f"{len(calls)} of {len(frames)} frames mapped")
     return calls, pipe
@@ -2885,6 +2979,75 @@ def phase_runs(kernels) -> tuple:
     return staged, per_frame
 
 
+def stage_graphs_line(graphs) -> str:
+    """Warm-up and capture seconds and launches per replay of captured
+    stages."""
+    return "; ".join(
+        f"{g.stage}: warm-up {g.warmup_seconds:.2f} s, capture "
+        f"{g.capture_seconds:.2f} s, launches per replay "
+        + ", ".join(f"{n} {c}" for n, c in g.kernel_launches.items() if c)
+        for g in graphs)
+
+
+def phase_stages(kernels, p5, eager) -> dict:
+    """Phase 17: the staged path as three captured stages (models/stages.py):
+    phase 5's run, captured, against phase 12's op-by-op run of the same
+    frames (odometry and mapped positions bitwise); then phase 5's frames
+    with ``sync_mapping=False`` (dropped frames counted, every retired pose
+    finite) and with ``skip_frame_num=2`` (held to the JAX package's
+    skip-2 positions).  Each run's stream ms per stage, frames/s and peak
+    memory on a line of its own."""
+    cfg = PROFILES["hdl64"]
+    graphs = stages.stage_graphs(cfg, "cuda")
+    gap = _check_gap("phase 17: phase 5 (captured) vs op by op (phase 12)",
+                     p5["positions"], eager["positions"])
+    odo_gap = _check_gap("phase 17: odometry of phase 5 vs op by op",
+                         p5["odometry"], eager["odometry"])
+    pa = phase_pipeline("17 async mapping",
+                        dataclasses.replace(cfg, sync_mapping=False),
+                        N_FRAMES, None, kernels)
+    ps = phase_pipeline("17 skip 2", dataclasses.replace(
+        cfg, odometry=dataclasses.replace(cfg.odometry, skip_frame_num=2)),
+        N_FRAMES, JAX_SKIP2_MAPPED_POSITIONS, kernels)
+    print(f"[17 captured stages] {stage_graphs_line(graphs)} | phase 5 "
+          f"(captured) vs phase 12 (op by op): max |mapped| gap "
+          f"{gap * 1e3:.4f} mm, max |odometry| gap {odo_gap * 1e3:.4f} mm "
+          "(limit 0: bitwise)")
+    for tag, p in (("default, captured (phase 5)", p5),
+                   ("default, op by op (phase 12)", eager),
+                   ("sync_mapping=False, captured", pa),
+                   ("skip_frame_num=2, captured", ps)):
+        print(f"[17 captured stages] {tag}: stream ms "
+              + " ".join(f"{n} {ms:.2f}" for n, ms in sorted(p["stages"].items()))
+              + f" | {p['fps']:.2f} frames/s | {p['n_mapped']} mapped, "
+              f"{p['dropped']} dropped | peak memory {p['peak_mib']:.0f} MiB")
+    return dict(runs=(pa, ps))
+
+
+def phase_vlp16(kernels) -> tuple:
+    """Phase 18: the VLP16 profile at full width (16 rings, h_max 2304,
+    65536-point frames) over 8 frames, staged (three captured stages) and
+    fused: mapped positions within 5 cm of the JAX package's, staged and
+    fused bitwise equal."""
+    cfg = PROFILES["vlp16"]
+    staged = phase_pipeline("18 vlp16", cfg, VLP16_N_FRAMES,
+                            JAX_VLP16_MAPPED_POSITIONS, kernels)
+    per_frame = phase_pipeline(
+        "18 vlp16", dataclasses.replace(cfg, fused_step=True),
+        VLP16_N_FRAMES, JAX_VLP16_MAPPED_POSITIONS, kernels)
+    gap = _check_gap("phase 18 fused vs staged", per_frame["positions"],
+                     staged["positions"])
+    graph = per_frame["graphs"][0]
+    print(f"[18 vlp16] {stage_graphs_line(staged['graphs'])} | fused graph: "
+          f"warm-up {graph.warmup_seconds:.2f} s, capture "
+          f"{graph.capture_seconds:.2f} s | max |fused - staged| "
+          f"{gap * 1e3:.4f} mm (limit 0: ordered sums) | stream ms staged "
+          + " ".join(f"{n} {ms:.2f}" for n, ms in sorted(staged["stages"].items()))
+          + f", fused_step {per_frame['stages']['fused_step']:.2f} | frames/s "
+          f"staged {staged['fps']:.2f}, fused {per_frame['fps']:.2f}")
+    return staged, per_frame
+
+
 # the kernels' names in the JSON line, by source
 KERNEL_NAMES = (("knn5", "knn.cu"), ("compat_votes", "vote.cu"),
                 ("segment_sum", "segsum.cu"))
@@ -2929,11 +3092,12 @@ def main(argv=None) -> int:
     import argparse
 
     ap = argparse.ArgumentParser(description="Smoke run of the port on the "
-                                 "card(s): phases 1-16 (module docstring).")
+                                 "card(s): phases 1-18 (module docstring).")
     ap.add_argument("--only-sharded", action="store_true",
                     help="phases 1, 2 and 15 only: phase 15 makes its own "
                     "references (for a run on several cards)")
     args = ap.parse_args(argv)
+    t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
     kernels = (KNN5, VOTE, SEGSUM)
@@ -2982,13 +3146,17 @@ def main(argv=None) -> int:
     p14 = phase_refine(kernels)
     p15 = phase_sharded(kernels, p5, p13, p14)
     p16 = phase_runs(kernels)
-    runs = (p5, p6, p7, p8, p9, p10, p14) + p12 + p16
-    launches = {name: sum(p["launches"][name] for p in runs) + p11[name]
+    p17 = phase_stages(kernels, p5, p12[-1])
+    p18 = phase_vlp16(kernels)
+    runs = (p5, p6, p7, p8, p9, p10, p11, p14) + p12 + p16 + p17["runs"] + p18
+    launches = {name: sum(p["launches"][name] for p in runs)
                 for name in p5["launches"]}
     graph_launches = {name: sum(p["graph_launches"][name] for p in runs)
                       for name in p5["launches"]}
     lane_launches = p13["graph_launches"]
 
+    print(f"[done] phases 1-18 in {time.perf_counter() - t_start:.1f} s "
+          "(the kernels' build included)")
     surf = knn[("surf", "below")]
     odo = vote[VOTE_SHAPES[0]]
     knn_err = max([v["err"] for v in knn.values()]

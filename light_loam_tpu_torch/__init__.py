@@ -31,6 +31,22 @@ _torch.backends.cuda.matmul.allow_tf32 = False
 _torch.backends.cudnn.allow_tf32 = False
 _torch.set_float32_matmul_precision("highest")
 
+# PyTorch's CPU kernels of these functions call MKL's vector math (VML),
+# which sets itself up at a function's first call.  When that first call
+# comes from several threads at once (a tensor large enough to be split),
+# one thread may compute its share at about 12 correct bits: a float32
+# sqrt then errs by up to 3e-4 relative, 1.4 cm on a 37 m distance, which
+# flips vote decisions far from their threshold
+# (``scripts/vml_first_call.py`` counts how often).  One call of each on a
+# tensor too small to split settles the set-up before any parallel call.
+for _fn in (_torch.acos, _torch.asin, _torch.atan, _torch.cos, _torch.erf,
+            _torch.erfinv, _torch.erfc, _torch.exp, _torch.log,
+            _torch.log10, _torch.log2, _torch.sin, _torch.sqrt, _torch.tan,
+            _torch.tanh, _torch.trunc):
+    for _dtype in (_torch.float32, _torch.float64):
+        _fn(_torch.full((2,), 0.5, dtype=_dtype))
+del _fn, _dtype
+
 from light_loam_tpu_torch.config import (  # noqa: E402
     HDL32,
     HDL64_KITTI,

@@ -29,13 +29,13 @@ B, its frames, states and output rows carry a lane axis after the chunk
 axis, and the captured step is the vmapped body over all B lanes.
 
 On CUDA a capture that fails raises; there is no eager fallback.  The
-staged path remains the default and is required for async mapping and for
-the non-mapping frames of ``skip_frame_num > 1``.
+staged path (each stage one graph, models/stages.py, whose capture
+machinery this module shares) remains the default and is required for
+async mapping and for the non-mapping frames of ``skip_frame_num > 1``.
 """
 
 from __future__ import annotations
 
-import time
 from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -52,15 +52,15 @@ from light_loam_tpu_torch.models.odometry import (
     OdometryState,
     odometry_step,
 )
-from light_loam_tpu_torch.ops.cuda_knn import KNN5
-from light_loam_tpu_torch.ops.cuda_segsum import SEGSUM
-from light_loam_tpu_torch.ops.cuda_vote import VOTE
+from light_loam_tpu_torch.models import stages
+from light_loam_tpu_torch.models.stages import (  # noqa: F401 (re-exported)
+    WARMUP_PASSES,
+    CapturedStep,
+    HostStaging,
+    _clone,
+    _leaves,
+)
 from light_loam_tpu_torch.ops.features import extract_features
-
-# eager passes of the step before its capture: they build the kernels at
-# first use and let the allocator, cuBLAS and cuSOLVER set up their handles
-# and workspaces outside the capture
-WARMUP_PASSES = 1
 
 
 def _fused_frame_body(
@@ -135,19 +135,6 @@ def _chunk_row(odo: OdometryOutput, mout: MappingOutput, diverged) -> ChunkOutpu
     )
 
 
-def _leaves(tree) -> list:
-    """Tensors of nested NamedTuples, in field order."""
-    if isinstance(tree, torch.Tensor):
-        return [tree]
-    return [leaf for part in tree for leaf in _leaves(part)]
-
-
-def _clone(tree):
-    if isinstance(tree, torch.Tensor):
-        return tree.clone()
-    return type(tree)(*(_clone(part) for part in tree))
-
-
 def stack_lanes(tree, lanes: int):
     """``lanes`` copies of every tensor of nested NamedTuples, stacked on a
     new leading axis."""
@@ -170,7 +157,7 @@ def _lanes_frame_body(odo_state, map_state, xyz, mask, cfg):
             ~torch.isfinite(odo.t_w).all(-1))
 
 
-class FrameGraph:
+class FrameGraph(CapturedStep):
     """The fused frame of one (config, device) captured as a CUDA graph,
     with the static buffers it replays on: ``chunk`` frames of input, the
     odometry and mapping state, and ``chunk`` rows of output.  The graph
@@ -194,12 +181,7 @@ class FrameGraph:
         lead = (chunk,) if lanes is None else (chunk, lanes)
         self.xyz = torch.zeros(lead + (n, 3), device=device)
         self.mask = torch.zeros(lead + (n,), dtype=torch.bool, device=device)
-        # frames arrive from the host through pinned memory, so the copy to
-        # the card does not wait; `_staged` marks the last such copy done
-        self._pinned_xyz = torch.zeros(lead + (n, 3)).pin_memory()
-        self._pinned_mask = torch.zeros(lead + (n,),
-                                        dtype=torch.bool).pin_memory()
-        self._staged = None
+        self._frames = HostStaging(self.xyz, self.mask)
         # the chunk frame the next captured step reads and the row it writes
         self.index = torch.zeros(1, dtype=torch.int64, device=device)
         self.odo_state = OdometryState.init(
@@ -241,47 +223,8 @@ class FrameGraph:
         i.add_(1)
         return odo, mout, diverged
 
-    def _capture(self) -> None:
-        """Warm up on a side stream, then capture one step.  The warm-up
-        runs on the static state (empty frames from the initial
-        state), which every call overwrites with the caller's, so it
-        advances no run."""
-        main = torch.cuda.current_stream(self.device)
-        t0 = time.perf_counter()
-        side = torch.cuda.Stream(self.device)
-        side.wait_stream(main)
-        with torch.cuda.stream(side):
-            for _ in range(WARMUP_PASSES):
-                self.index.zero_()
-                self._step()
-        main.wait_stream(side)
+    def _reset(self) -> None:
         self.index.zero_()
-        torch.cuda.synchronize(self.device)
-        self.warmup_seconds = time.perf_counter() - t0
-
-        kernels = (KNN5, VOTE, SEGSUM)
-        before = [k.launches for k in kernels]
-        t0 = time.perf_counter()
-        self.graph = torch.cuda.CUDAGraph()
-        with torch.cuda.graph(self.graph):
-            self.last = self._step()
-        self.capture_seconds = time.perf_counter() - t0
-        for k, b in zip(kernels, before):
-            self.kernel_launches[k.source.name] = k.launches - b
-
-    def _load_frames(self, xyz: torch.Tensor, mask: torch.Tensor) -> None:
-        if xyz.is_cuda:
-            self.xyz.copy_(xyz)
-            self.mask.copy_(mask)
-            return
-        if self._staged is not None:
-            self._staged.synchronize()
-        self._pinned_xyz.copy_(xyz)
-        self._pinned_mask.copy_(mask)
-        self.xyz.copy_(self._pinned_xyz, non_blocking=True)
-        self.mask.copy_(self._pinned_mask, non_blocking=True)
-        self._staged = torch.cuda.Event()
-        self._staged.record()
 
     def run(self, odo_state: OdometryState, map_state: MappingState,
             xyz: torch.Tensor, mask: torch.Tensor):
@@ -297,7 +240,7 @@ class FrameGraph:
         for dst, src in zip(_leaves((self.odo_state, self.map_state)),
                             _leaves((odo_state, map_state))):
             dst.copy_(src, non_blocking=True)
-        self._load_frames(xyz, mask)
+        self._frames.load(xyz, mask)
         self.index.zero_()
         for _ in range(self.chunk):
             self.graph.replay()
@@ -322,8 +265,10 @@ def frame_graph(cfg: PipelineConfig, device, chunk: int = 1,
 
 
 def clear_graphs() -> None:
-    """Drop every captured graph and the device memory it holds."""
+    """Drop every captured graph, the staged path's too, and the device
+    memory it holds."""
     _GRAPHS.clear()
+    stages.clear_graphs()
 
 
 def fused_frame_step(

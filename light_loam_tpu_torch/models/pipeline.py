@@ -5,8 +5,10 @@ Counterpart of ``light_loam_tpu/models/pipeline.py``.  Per frame:
 
     raw cloud ──▶ extract_features ──▶ odometry_step ──▶ mapping_step
 
-all on the Pipeline's ``device``, as three staged steps or, with
-``PipelineConfig.fused_step``, as one device program (models/fused.py).  The reference's back-pressure — mapping
+all on the Pipeline's ``device``, as three staged steps (each one
+captured CUDA graph on a card, models/stages.py, as the JAX package jits
+each) or, with ``PipelineConfig.fused_step``, as one device program
+(models/fused.py).  The reference's back-pressure — mapping
 drops frames while it is busy (laserMapping.cpp:1571-1575) — is kept: a
 mapping step is dispatched only when the previous one has retired (a CUDA
 event recorded after the step has completed), otherwise the frame is
@@ -37,18 +39,17 @@ from light_loam_tpu_torch.config import (
     PipelineConfig,
 )
 from light_loam_tpu_torch.core import quaternion as quat
+from light_loam_tpu_torch.models import stages
 from light_loam_tpu_torch.models.mapping import (
     MappingState,
     check_mapping_config,
-    mapping_step,
 )
 from light_loam_tpu_torch.models.odometry import (
     OdometryState,
     check_odometry_config,
-    odometry_step,
 )
 from light_loam_tpu_torch.models.refine import extract_landmarks, refine_window
-from light_loam_tpu_torch.ops.features import check_scan_config, extract_features
+from light_loam_tpu_torch.ops.features import check_scan_config
 from light_loam_tpu_torch.ops.voxel import voxel_downsample
 from light_loam_tpu_torch.utils.timing import StageTimers
 
@@ -175,13 +176,12 @@ class Pipeline:
             and self.frame % cfg.odometry.skip_frame_num == 0
         ):
             return self._process_frame_fused(xyz, mask)
+        # each stage one graph replay on a card (models/stages.py)
         with self.timers.stage("features"):
-            feats = extract_features(
-                torch.as_tensor(xyz, dtype=torch.float32).to(dev),
-                torch.as_tensor(mask, dtype=torch.bool).to(dev), cfg.scan)
+            feats = stages.run_features(xyz, mask, cfg, dev)
         with self.timers.stage("odometry"):
-            self.odo_state, odo = odometry_step(
-                self.odo_state, feats, cfg.odometry, cfg.scan.scan_period)
+            self.odo_state, odo = stages.run_odometry(self.odo_state, feats,
+                                                      cfg)
 
         # failure containment: a non-finite odometry pose must not poison
         # downstream state — keep the previous pose and count the frame
@@ -211,11 +211,11 @@ class Pipeline:
                 self.dropped_mapping_frames += 1
             else:
                 with self.timers.stage("mapping"):
-                    new_state, map_out = mapping_step(
+                    new_state, map_out = stages.run_mapping(
                         self.map_state,
                         self.odo_state.corner_last,
                         self.odo_state.surf_last,
-                        odo.q_w, odo.t_w, cfg.mapping,
+                        odo.q_w, odo.t_w, cfg,
                     )
                 self._pending_map_out = map_out
                 self._pending_map_state = new_state

@@ -1,10 +1,13 @@
 """Where one frame of the PyTorch port's pipeline spends its time on a GPU.
 
-    python scripts/profile_torch.py [--profile hdl64] [--frames 9] [--fused] [--out DIR] [--trace]
+    python scripts/profile_torch.py [--profile hdl64] [--frames 9] [--regimes default async skip2] [--eager] [--fused] [--out DIR] [--trace]
 
 Runs the port's pipeline (``light_loam_tpu_torch``) on the synthetic
 straight run on ``cuda``: one warm-up frame, then half of the rest timed
-untraced and the other half traced with ``torch.profiler``.  Prints:
+untraced and the other half traced with ``torch.profiler``.  The staged
+path runs as it does by default, each stage one CUDA graph replay
+(models/stages.py; the graphs are captured before the first frame).
+Prints:
 
   * the card (``nvidia-smi`` name and power limit);
   * per-stage stream time (CUDA events around features, odometry, mapping)
@@ -12,7 +15,18 @@ untraced and the other half traced with ``torch.profiler``.  Prints:
   * device busy share: kernel time per traced frame over untraced wall
     time per frame (kernels on one stream do not overlap, so 1 - busy is
     the idle share);
-  * the operators with the most device time, with their launch counts.
+  * kernels per frame on the device, and launches per frame from the host
+    (the CUDA runtime's kernel launch, graph launch, copy and set calls);
+  * the operators with the most device time, with their launch counts
+    (for a replayed graph, which has no host-side operators, its kernels
+    by name).
+
+With ``--regimes`` the captured staged path is measured under each regime
+named: ``default``, ``async`` (``sync_mapping=False``, the drop policy on:
+dropped frames counted) and ``skip2`` (``skip_frame_num=2``).  With
+``--eager`` the same frames then go through the staged path op by op
+(``stages.eager()``), as the staged path ran before its stages were
+captured.
 
 With ``--fused`` the same frames then go through the fused path
 (``fused_step=True``, one CUDA graph replay per frame; the graph is captured
@@ -27,6 +41,7 @@ With ``--out`` it also writes ``profile_torch.json`` there, and with
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import subprocess
@@ -39,6 +54,7 @@ from torch.profiler import ProfilerActivity, profile
 
 sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
+from light_loam_tpu_torch.models import stages  # noqa: E402
 from light_loam_tpu_torch.models.fused import frame_graph  # noqa: E402
 from light_loam_tpu_torch.models.pipeline import (  # noqa: E402
     PROFILES,
@@ -47,24 +63,48 @@ from light_loam_tpu_torch.models.pipeline import (  # noqa: E402
 )
 
 
-def measure(cfg, frames, n, top_n, smi, profile_name) -> tuple:
+# the staged path's regimes: the config each runs under
+REGIMES = {
+    "default": lambda cfg: cfg,
+    "async": lambda cfg: dataclasses.replace(cfg, sync_mapping=False),
+    "skip2": lambda cfg: dataclasses.replace(cfg, odometry=dataclasses.replace(
+        cfg.odometry, skip_frame_num=2)),
+}
+
+# CUDA API calls that start work on the device
+HOST_LAUNCHES = ("cudaLaunchKernel", "cudaLaunchKernelExC", "cuLaunchKernel",
+                 "cuLaunchKernelEx", "cudaGraphLaunch", "cudaMemcpyAsync",
+                 "cudaMemsetAsync")
+
+
+def measure(cfg, frames, n, top_n, smi, profile_name, eager=False) -> tuple:
     """One warm-up frame, ``n`` frames timed untraced, ``n`` traced; returns
     (the numbers, the profiler of the traced frames)."""
-    path = "fused" if cfg.fused_step else "staged"
+    path = ("fused" if cfg.fused_step else
+            "staged eager" if eager else "staged captured")
+    if not cfg.sync_mapping:
+        path += ", sync_mapping=False"
+    if cfg.odometry.skip_frame_num > 1:
+        path += f", skip_frame_num={cfg.odometry.skip_frame_num}"
     pipe = Pipeline(cfg, device="cuda")
-    pipe.process_frame(*frames[0][1:])
+    def run():
+        return stages.eager() if eager else contextlib.nullcontext()
+
+    with run():
+        pipe.process_frame(*frames[0][1:])
     torch.cuda.synchronize()
     pipe.timers.reset()
     torch.cuda.reset_peak_memory_stats()
 
     t0 = time.perf_counter()
-    for _, xyz, mask in frames[1:1 + n]:
-        pipe.process_frame(xyz, mask)
+    with run():
+        for _, xyz, mask in frames[1:1 + n]:
+            pipe.process_frame(xyz, mask)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    stages = {k: v.mean_ms for k, v in pipe.timers.device_report().items()}
+    stage_ms = {k: v.mean_ms for k, v in pipe.timers.device_report().items()}
 
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, run():
         for _, xyz, mask in frames[1 + n:1 + 2 * n]:
             pipe.process_frame(xyz, mask)
         torch.cuda.synchronize()
@@ -76,7 +116,8 @@ def measure(cfg, frames, n, top_n, smi, profile_name) -> tuple:
     on_device = [e for e in events
                  if e.device_type == torch.autograd.DeviceType.CUDA]
     kernel_ms = sum(e.self_device_time_total for e in on_device) / 1e3
-    ops = on_device if cfg.fused_step else [
+    host_launches = sum(e.count for e in events if e.key in HOST_LAUNCHES)
+    ops = on_device if not eager else [
         e for e in events
         if e.device_type != torch.autograd.DeviceType.CUDA
         and e.self_device_time_total > 0]
@@ -90,20 +131,25 @@ def measure(cfg, frames, n, top_n, smi, profile_name) -> tuple:
         "card": smi, "profile": profile_name, "path": path,
         "frames_timed": n, "frames_traced": n,
         "wall_ms_per_frame": wall_ms / n,
-        "stage_stream_ms_per_frame": stages,
+        "stage_stream_ms_per_frame": stage_ms,
         "device_busy_share": kernel_ms / wall_ms,
         "kernel_ms_per_frame": kernel_ms / n,
         "launches_per_frame": sum(e.count for e in on_device) / n,
+        "host_launches_per_frame": host_launches / n,
         "peak_memory_mib": torch.cuda.max_memory_allocated() / 2**20,
+        "dropped_mapping_frames": pipe.dropped_mapping_frames,
         "top_ops": top,
     }
     print(f"{profile_name} {path}: {n}+{n} frames | wall {wall_ms / n:.2f} "
           f"ms/frame | kernels {kernel_ms / n:.2f} ms/frame in "
-          f"{result['launches_per_frame']:.0f} launches | device busy "
+          f"{result['launches_per_frame']:.0f} kernels, "
+          f"{result['host_launches_per_frame']:.0f} launches from the host "
+          f"| device busy "
           f"{kernel_ms / wall_ms:.3f} | peak memory "
-          f"{result['peak_memory_mib']:.0f} MiB")
+          f"{result['peak_memory_mib']:.0f} MiB | dropped mapping frames "
+          f"{pipe.dropped_mapping_frames}")
     print("stage stream ms/frame: " + ", ".join(
-        f"{k} {v:.2f}" for k, v in sorted(stages.items())))
+        f"{k} {v:.2f}" for k, v in sorted(stage_ms.items())))
     for r in top:
         print(f"  {r['device_ms_per_frame']:9.3f} ms  {r['calls_per_frame']:8.1f}x"
               f"  {r['op'][:90]}")
@@ -118,6 +164,12 @@ def main(argv=None) -> int:
     ap.add_argument("--top", type=int, default=25)
     ap.add_argument("--out", type=Path, default=None)
     ap.add_argument("--trace", action="store_true")
+    ap.add_argument("--regimes", nargs="+", default=["default"],
+                    choices=sorted(REGIMES),
+                    help="the staged path's regimes to measure, captured")
+    ap.add_argument("--eager", action="store_true",
+                    help="also measure the staged path op by op "
+                         "(stages.eager())")
     ap.add_argument("--fused", action="store_true",
                     help="also measure the fused path (one graph replay per "
                          "frame)")
@@ -136,8 +188,21 @@ def main(argv=None) -> int:
     if n < 1:
         raise SystemExit("profile_torch: --frames must be at least 3")
     results = {}
-    results["staged"], prof = measure(base, frames, n, args.top, smi,
-                                      args.profile)
+    graphs = stages.stage_graphs(base, "cuda")
+    print("staged: " + ", ".join(
+        f"{g.stage} warm-up {g.warmup_seconds:.2f} s, capture "
+        f"{g.capture_seconds:.2f} s" for g in graphs))
+    for regime in args.regimes:
+        key = "staged" if regime == "default" else f"staged {regime}"
+        results[key], prof = measure(REGIMES[regime](base), frames, n,
+                                     args.top, smi, args.profile)
+        results[key]["graphs"] = {
+            g.stage: {"warmup_seconds": g.warmup_seconds,
+                      "capture_seconds": g.capture_seconds,
+                      "kernel_launches": g.kernel_launches} for g in graphs}
+    if args.eager:
+        results["staged eager"], prof = measure(base, frames, n, args.top,
+                                                smi, args.profile, eager=True)
     if args.fused:
         cfg = dataclasses.replace(base, fused_step=True)
         graph = frame_graph(cfg, "cuda")

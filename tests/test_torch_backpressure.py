@@ -5,9 +5,12 @@ With ``sync_mapping=False`` a frame whose mapping step is still in flight
 is dropped for mapping while odometry continues (laserMapping.cpp:
 1571-1575).  On a card, "in flight" is a CUDA event that has not completed
 (``Pipeline._mapping_busy``); CPU steps retire at once, so the tests wrap
-``mapping_step`` to record each dispatch and patch ``_mapping_busy`` to
-report a step busy until the test releases it, as the JAX test holds its
-proxy's ``is_ready()`` false.  The drop/retire bookkeeping is the subject;
+``mapping_step`` where the staged path calls it (models/stages.py) to
+record each dispatch and patch ``_mapping_busy`` to report a step busy
+until the test releases it, as the JAX test holds its proxy's
+``is_ready()`` false.  The stage hands the Pipeline copies of the step's
+outputs, so the pending step is known by its place in the dispatch order:
+it is always the last one dispatched.  The drop/retire bookkeeping is the subject;
 the trajectory rows are compared exactly (atol 0).  ~70 s on two CPU
 threads (hdl64-small, 500 azimuth steps; the wait test runs 4 frames
 where the JAX test runs 6).
@@ -18,7 +21,7 @@ import dataclasses
 import numpy as np
 import torch
 
-import light_loam_tpu_torch.models.pipeline as pl
+from light_loam_tpu_torch.models import stages
 from light_loam_tpu_torch.models.pipeline import PROFILES, Pipeline
 from light_loam_tpu_torch.utils.synthetic import World, pad_cloud, simulate_scan
 
@@ -30,10 +33,10 @@ class _SlowSteps:
     ``release()`` (the event of a step still running on the card)."""
 
     def __init__(self, monkeypatch):
-        self.real_step = pl.mapping_step
-        self.released = set()
+        self.real_step = stages.mapping_step
+        self.released = 0
         self.dispatched = []
-        monkeypatch.setattr(pl, "mapping_step", self.step)
+        monkeypatch.setattr(stages, "mapping_step", self.step)
         monkeypatch.setattr(Pipeline, "_mapping_busy",
                             lambda pipe: self.busy(pipe))
 
@@ -43,11 +46,11 @@ class _SlowSteps:
         return state, out
 
     def busy(self, pipe) -> bool:
-        out = pipe._pending_map_out
-        return out is not None and id(out) not in self.released
+        return (pipe._pending_map_out is not None
+                and len(self.dispatched) > self.released)
 
     def release(self):
-        self.released.update(id(o) for o in self.dispatched)
+        self.released = len(self.dispatched)
 
 
 def _frame(world, cfg, i, seed0):

@@ -31,7 +31,9 @@ replays a CUDA graph of the very ops the eager body enqueues, and the
 staged path runs the same stage functions; with the voxel, store and
 refinement sums ordered, graph, eager body and staged run are the same
 computation, and two runs with PyTorch's default settings are held to each
-other bitwise.  (With ``index_add_``'s atomics the order of the adds
+other bitwise.  The staged path replays one captured graph per stage
+(models/stages.py); each replay is held to its body run eagerly, and the
+staged Pipeline to its run under ``stages.eager()``, bitwise.  (With ``index_add_``'s atomics the order of the adds
 changed from run to run, and through the float32 plane-fit gates, ROADMAP.md
 Queue 3, the trajectory: millimetres after a few flagship frames.)  The
 graph tests written then run under ``torch.use_deterministic_algorithms``
@@ -44,7 +46,12 @@ comes last in the file: it leaves a broken capture behind it.
 """
 
 import dataclasses
+import json
 import math
+import os
+import subprocess
+import sys
+import textwrap
 
 import numpy as np
 import pytest
@@ -52,12 +59,14 @@ import torch
 
 from chip_smoke import (
     expected_launches,
+    graph_launches_since,
+    keyframe_launches,
     latent_vote_config,
     replay_kernel_counts,
     replay_launches,
 )
 from light_loam_tpu_torch.core.frame import PointCloud
-from light_loam_tpu_torch.models import batch, fused
+from light_loam_tpu_torch.models import batch, fused, stages
 from light_loam_tpu_torch.models import pipeline as tpl
 from light_loam_tpu_torch.models.mapping import MappingState, mapping_step
 from light_loam_tpu_torch.models.odometry import OdometryState
@@ -485,16 +494,31 @@ def test_surf_tiled_matches_grid_on_card(cuda):
 @pytest.mark.cuda
 @pytest.mark.parametrize("latent", [False, True])
 def test_cuda_pipeline_matches_cpu_and_counts_launches(cuda, latent):
+    """The staged Pipeline on the card: its stages' replays launch what the
+    config says, the run op by op (``stages.eager()``) launches the same
+    through the wrappers and ends bitwise where the replays do, and both
+    stay near the CPU run."""
     run = dict(n_frames=5 if latent else 3, profile="hdl64-small",
                n_azimuth=700, speed=0.6, seed=2)
     cfg = tpl.PROFILES[run["profile"]]
     if latent:
         cfg = latent_vote_config(cfg)
+    graphs = stages.stage_graphs(cfg, cuda)
+    replays = [g.replays for g in graphs]
     KNN5.launches = VOTE.launches = SEGSUM.launches = 0
     pipe, res = _run_synthetic(cfg, run, "cuda")
     n_mapped = sum(r.mapped for r in res)
-    want = expected_launches(cfg, len(res), n_mapped)
-    assert _launches() == want
+    # the stages replay their graphs; the wrappers count the host loop's
+    # keyframe stacks alone
+    assert _launches() == keyframe_launches(n_mapped)
+    assert graph_launches_since(graphs, replays) == expected_launches(
+        cfg, len(res), n_mapped, keyframes=0)
+    KNN5.launches = VOTE.launches = SEGSUM.launches = 0
+    with stages.eager():
+        eager, eager_res = _run_synthetic(cfg, run, "cuda")
+    assert _launches() == expected_launches(cfg, len(res), n_mapped)
+    np.testing.assert_array_equal(eager.mapped_positions(),
+                                  pipe.mapped_positions())
     cpu_pipe, _ = _run_synthetic(cfg, run, "cpu")
     # the CPU and the card round differently; see test_torch_pipeline.py
     np.testing.assert_allclose(pipe.mapped_positions(),
@@ -1324,6 +1348,152 @@ def test_graph_replay_matches_eager_body_default_settings(cuda, tmp_path,
             f"graph and eager body differ by {np.abs(got - want).max():.3e} "
             f"(rows: frames; columns: odometry q, t, mapping q, t, t_wm); "
             f"both runs' poses are in {path}")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("settings", ["default", "deterministic"])
+def test_stage_replays_match_eager_bodies(cuda, request, settings):
+    """Three hdl64-small frames: each stage's replay (models/stages.py)
+    against its body run eagerly on the same inputs, from the eager run's
+    carried states, bitwise, with PyTorch's default settings and under
+    deterministic sums; the three replays of a frame read nothing to the
+    host."""
+    if settings == "deterministic":
+        request.getfixturevalue("deterministic_sums")
+    else:
+        fused.clear_graphs()
+    cfg = tpl.PROFILES["hdl64-small"]
+    frames = _small_frames(cfg, 3, cuda)
+    odo, mp = _init_states(cfg, cuda)
+    try:
+        graphs = stages.stage_graphs(cfg, cuda)
+        for xyz, mask in frames:
+            torch.cuda.synchronize()
+            torch.cuda.set_sync_debug_mode("error")
+            try:
+                feats = graphs[0].run(xyz, mask)
+                odo_g = graphs[1].run(odo, feats)
+                map_g = graphs[2].run(mp, odo_g[0].corner_last,
+                                      odo_g[0].surf_last, odo_g[1].q_w,
+                                      odo_g[1].t_w)
+            finally:
+                torch.cuda.set_sync_debug_mode("default")
+            feats_e = stages._features_body(xyz, mask, cfg)
+            odo_e = stages._odometry_body(odo, feats_e, cfg)
+            map_e = stages._mapping_body(mp, odo_e[0].corner_last,
+                                         odo_e[0].surf_last, odo_e[1].q_w,
+                                         odo_e[1].t_w, cfg)
+            for got, want in ((feats, feats_e), (odo_g, odo_e),
+                              (map_g, map_e)):
+                for a, b in zip(fused._leaves(got), fused._leaves(want)):
+                    assert torch.equal(a, b)
+            odo, mp = odo_e[0], map_e[0]
+        assert int(mp.surf.mask.sum()) > 0
+        assert [g.replays for g in graphs] == [3, 3, 3]
+        assert all(g.graph is not None for g in graphs)
+    finally:
+        fused.clear_graphs()
+
+
+def _busy_but_every_third_frame(pipe) -> bool:
+    """A mapping step in flight stays busy but on every third frame."""
+    return pipe._pending_map_out is not None and pipe.frame % 3 != 0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("regime", ["default", "async_drop", "skip_two"])
+def test_staged_pipeline_captured_equals_eager(cuda, monkeypatch, regime):
+    """Six hdl64-small frames through the staged Pipeline, its stages
+    replayed, against the same frames op by op (``stages.eager()``),
+    bitwise: the default, ``sync_mapping=False`` with drops (mapping held
+    busy but on every third frame) and ``skip_frame_num=2``.  The replays
+    launch what the config says; the wrappers count the keyframe stacks
+    alone."""
+    base = tpl.PROFILES["hdl64-small"]
+    cfg = {"default": base,
+           "async_drop": dataclasses.replace(base, sync_mapping=False),
+           "skip_two": dataclasses.replace(base, odometry=dataclasses.replace(
+               base.odometry, skip_frame_num=2))}[regime]
+    if regime == "async_drop":
+        monkeypatch.setattr(tpl.Pipeline, "_mapping_busy",
+                            _busy_but_every_third_frame)
+    run = dict(n_frames=6, n_azimuth=700, speed=0.6, seed=2)
+    fused.clear_graphs()
+    try:
+        graphs = stages.stage_graphs(cfg, cuda)
+        replays = [g.replays for g in graphs]
+        KNN5.launches = VOTE.launches = SEGSUM.launches = 0
+        pipe, res = _run_synthetic(cfg, run, "cuda")
+        n_mapped = sum(r.mapped for r in res)
+        assert _launches() == keyframe_launches(n_mapped)
+        assert graph_launches_since(graphs, replays) == expected_launches(
+            cfg, len(res), n_mapped, keyframes=0)
+        with stages.eager():
+            eager, eager_res = _run_synthetic(cfg, run, "cuda")
+    finally:
+        fused.clear_graphs()
+    if regime != "default":
+        assert 0 < n_mapped < len(res)
+    assert pipe.dropped_mapping_frames == eager.dropped_mapping_frames
+    assert [r.mapped for r in res] == [r.mapped for r in eager_res]
+    for r, e in zip(res, eager_res):
+        np.testing.assert_array_equal(r.odom_t, e.odom_t)
+        np.testing.assert_array_equal(r.odom_q, e.odom_q)
+        if r.mapped:
+            np.testing.assert_array_equal(r.map_t, e.map_t)
+    np.testing.assert_array_equal(pipe.mapped_positions(),
+                                  eager.mapped_positions())
+
+
+REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+FAILED_STAGE_CAPTURE = textwrap.dedent("""
+    import json
+    from light_loam_tpu_torch.models import pipeline as tpl
+    from light_loam_tpu_torch.models import stages
+
+    cfg = tpl.PROFILES["hdl64-small"]
+    real_step = stages.odometry_step
+    calls = []
+
+    def reads_to_host(state, feats, ocfg, period, **kwargs):
+        calls.append(float(state.t_w.sum()))
+        return real_step(state, feats, ocfg, period, **kwargs)
+
+    stages.odometry_step = reads_to_host
+    pipe = tpl.Pipeline(cfg, device="cuda")
+    _, xyz, mask = next(iter(tpl.synthetic_frames(1, cfg, 700, 0.6, 2)))
+    try:
+        pipe.process_frame(xyz, mask)
+        raised = None
+    except RuntimeError as exc:
+        raised = str(exc)[:300]
+    print("RESULT " + json.dumps(dict(
+        raised=raised, calls=len(calls), frame=pipe.frame,
+        cached=sorted(key[0] for key in stages._GRAPHS),
+        device=str(pipe.odo_state.q_w.device))))
+""")
+
+
+@pytest.mark.cuda
+def test_failed_stage_capture_raises(cuda):
+    """An odometry body that reads to the host passes its eager warm-up and
+    breaks its capture: the Pipeline's frame raises, the stage caches no
+    graph, the frame is not run op by op in its place, nor on the CPU.  In
+    a process of its own: a broken capture leaves its process's CUDA state
+    behind (the fused frame's twin, ``test_failed_capture_raises``, comes
+    last in this file for that reason)."""
+    proc = subprocess.run(
+        [sys.executable, "-c", FAILED_STAGE_CAPTURE], capture_output=True,
+        text=True, timeout=600, cwd=REPO,
+        env=dict(os.environ, PYTHONPATH=REPO))
+    lines = [line for line in proc.stdout.splitlines()
+             if line.startswith("RESULT ")]
+    assert proc.returncode == 0 and len(lines) == 1, proc.stderr[-3000:]
+    got = json.loads(lines[0][len("RESULT "):])
+    assert got["raised"]
+    assert got["calls"] <= stages.WARMUP_PASSES + 1
+    assert got["cached"] == ["features"]
+    assert got["frame"] == 0 and got["device"] == "cuda:0"
 
 
 @pytest.mark.cuda
