@@ -61,6 +61,7 @@ from light_loam_tpu_torch.models.stages import (  # noqa: F401 (re-exported)
     _leaves,
 )
 from light_loam_tpu_torch.ops.features import extract_features
+from light_loam_tpu_torch.utils.timing import span
 
 
 def _fused_frame_body(
@@ -171,11 +172,13 @@ class FrameGraph(CapturedStep):
     ``kernel_launches`` is what the hand-written kernels' wrappers counted
     while the step was captured, so what one replay launches; ``replays``
     counts the replays.  A replay goes past the wrappers and leaves their
-    own counts alone."""
+    own counts alone.  ``run`` records the spans of models/stages.py under
+    ``name``: ``fused_step``, or ``batched_step`` with lanes."""
 
     def __init__(self, cfg: PipelineConfig, device: torch.device,
                  chunk: int = 1, lanes: Optional[int] = None):
         self.cfg, self.device, self.chunk = cfg, device, chunk
+        self.name = "fused_step" if lanes is None else "batched_step"
         self._body = _fused_frame_body if lanes is None else _lanes_frame_body
         n = cfg.scan.max_points
         lead = (chunk,) if lanes is None else (chunk, lanes)
@@ -237,15 +240,18 @@ class FrameGraph(CapturedStep):
                 f"FrameGraph: frames {tuple(xyz.shape)}, {tuple(mask.shape)} "
                 f"do not match the captured {tuple(self.xyz.shape)}, "
                 f"{tuple(self.mask.shape)}")
-        for dst, src in zip(_leaves((self.odo_state, self.map_state)),
-                            _leaves((odo_state, map_state))):
-            dst.copy_(src, non_blocking=True)
-        self._frames.load(xyz, mask)
-        self.index.zero_()
+        with span(self.name + ".copy_in"):
+            for dst, src in zip(_leaves((self.odo_state, self.map_state)),
+                                _leaves((odo_state, map_state))):
+                dst.copy_(src, non_blocking=True)
+            self._frames.load(xyz, mask)
+            self.index.zero_()
         for _ in range(self.chunk):
-            self.graph.replay()
+            self.marks.replay(self.graph, self.name)
             self.replays += 1
-        return _clone(self.odo_state), _clone(self.map_state), _clone(self.rows)
+        with span(self.name + ".clone_out"):
+            return (_clone(self.odo_state), _clone(self.map_state),
+                    _clone(self.rows))
 
 
 _GRAPHS: Dict[tuple, FrameGraph] = {}

@@ -14,6 +14,10 @@ mapping step is dispatched only when the previous one has retired (a CUDA
 event recorded after the step has completed), otherwise the frame is
 dropped for mapping while odometry goes on.  With ``sync_mapping`` (the
 default) every step retires before its frame returns.
+Besides the stages, the frame's timers (``Pipeline.timers``) hold host
+spans of the pose read (``pose_read``), the keyframe stack
+(``keyframe_stack``) and the retire of a mapping step (``retire``), and
+count every read of the card on the frame path (``StageTimers.read``).
 ``refine_recent_keyframes`` re-estimates the newest buffered keyframes
 jointly against plane landmarks of the map (models/refine.py).
 """
@@ -142,26 +146,30 @@ class Pipeline:
         if not wait and self._mapping_busy():
             return
         out = self._pending_map_out
-        self.map_state = self._pending_map_state
-        q = out.q_w.cpu().numpy()
-        t = out.t_w.cpu().numpy()
-        self._last_map_pose = (q, t)
-        self._map_trajectory.append(t.copy())
-        self._map_quats.append(q.copy())
-        if self._pending_kf is not None:
-            q_odo, t_odo, sx, sm = self._pending_kf
-            self._keyframes.append((q, t, sx.cpu().numpy(), sm.cpu().numpy(),
-                                    len(self._map_trajectory) - 1, q_odo, t_odo))
-            if len(self._keyframes) > 16:
-                self._keyframes.pop(0)
-            self._pending_kf = None
-        # saturation watch: the voxel-dedup store drops overflow silently
-        m = self.cfg.mapping
-        if (int(out.map_surf_points) >= m.map_surf_capacity
-                or int(out.map_corner_points) >= m.map_corner_capacity):
-            self.map_saturation_events += 1
-        if int(out.local_overflow) > 0:
-            self.local_overflow_events += 1
+        read = self.timers.read
+        with self.timers.host("retire"):
+            self.map_state = self._pending_map_state
+            q = read(out.q_w)
+            t = read(out.t_w)
+            self._last_map_pose = (q, t)
+            self._map_trajectory.append(t.copy())
+            self._map_quats.append(q.copy())
+            if self._pending_kf is not None:
+                q_odo, t_odo, sx, sm = self._pending_kf
+                self._keyframes.append(
+                    (q, t, read(sx), read(sm), len(self._map_trajectory) - 1,
+                     q_odo, t_odo))
+                if len(self._keyframes) > 16:
+                    self._keyframes.pop(0)
+                self._pending_kf = None
+            # saturation watch: the voxel-dedup store drops overflow silently
+            m = self.cfg.mapping
+            if (int(read(out.map_surf_points)) >= m.map_surf_capacity
+                    or int(read(out.map_corner_points))
+                    >= m.map_corner_capacity):
+                self.map_saturation_events += 1
+            if int(read(out.local_overflow)) > 0:
+                self.local_overflow_events += 1
         self._pending_map_out = None
         self._pending_map_state = None
         self._pending_done = None
@@ -185,8 +193,9 @@ class Pipeline:
 
         # failure containment: a non-finite odometry pose must not poison
         # downstream state — keep the previous pose and count the frame
-        odo_q = odo.q_w.cpu().numpy()
-        odo_t = odo.t_w.cpu().numpy()
+        with self.timers.host("pose_read"):
+            odo_q = self.timers.read(odo.q_w)
+            odo_t = self.timers.read(odo.t_w)
         if not np.isfinite(odo_t).all():
             self.diverged_frames += 1
             q_prev, t_prev = self._last_odo_pose
@@ -255,9 +264,11 @@ class Pipeline:
         # queues behind the fused program on the device; the first read
         # below then covers both in one wait
         kf_stack = self._keyframe_stack()
-        odo_q = odo.q_w.cpu().numpy()
-        odo_t = odo.t_w.cpu().numpy()
-        if bool(diverged):
+        with self.timers.host("pose_read"):
+            odo_q = self.timers.read(odo.q_w)
+            odo_t = self.timers.read(odo.t_w)
+            diverged = bool(self.timers.read(diverged))
+        if diverged:
             self.diverged_frames += 1
         else:
             self._last_odo_pose = (odo_q, odo_t)
@@ -344,10 +355,11 @@ class Pipeline:
         """(stack_xyz, stack_mask) of the surf cloud a mapping step is about
         to consume — captured at dispatch, buffered at retirement."""
         surf = self.odo_state.surf_last
-        sx, _, sm, _ = voxel_downsample(
-            surf.xyz, surf.rel, surf.mask,
-            self.cfg.mapping.plane_resolution, stack_points,
-        )
+        with self.timers.host("keyframe_stack"):
+            sx, _, sm, _ = voxel_downsample(
+                surf.xyz, surf.rel, surf.mask,
+                self.cfg.mapping.plane_resolution, stack_points,
+            )
         return sx, sm
 
     # -- checkpoint / resume (snapshot of map + pose state) --------------
@@ -447,7 +459,7 @@ class Pipeline:
         t_odo = torch.as_tensor(odo_t, dtype=torch.float32).to(self.device)
         q = quat.quat_multiply(ms.q_wm, q_odo)
         t = quat.quat_rotate(ms.q_wm, t_odo) + ms.t_wm
-        return q.cpu().numpy(), t.cpu().numpy()
+        return self.timers.read(q), self.timers.read(t)
 
 
 def synthetic_frames(

@@ -24,7 +24,14 @@ The odometry body sweeps every tile of the tiled surf search
 host read (models/odometry.py), which finds the same matches.
 
 The capture machinery here (``CapturedStep``, ``HostStaging``) is shared
-with the fused frame (models/fused.py).
+with the fused frame (models/fused.py).  Each run records spans into the
+``StageTimers`` whose stage is open (utils/timing.py): ``<stage>.copy_in``
+(the inputs into the static buffers, pinned staging included),
+``<stage>.launch`` (the ``replay()`` call; on a card, on the device, from
+just before it to the graph's first node: the launch wait),
+``<stage>.graph`` (on a card only: the graph's first node to its last,
+marked by two timing events captured into it) and ``<stage>.clone_out``
+(the clones of the outputs).  On the CPU ``<stage>.launch`` times the body.
 """
 
 from __future__ import annotations
@@ -44,6 +51,7 @@ from light_loam_tpu_torch.ops.cuda_knn import KNN5
 from light_loam_tpu_torch.ops.cuda_segsum import SEGSUM
 from light_loam_tpu_torch.ops.cuda_vote import VOTE
 from light_loam_tpu_torch.ops.features import extract_features
+from light_loam_tpu_torch.utils.timing import GraphMarks, span
 
 # eager passes of a step before its capture: they build the kernels at
 # first use and let the allocator, cuBLAS and cuSOLVER set up their handles
@@ -102,7 +110,9 @@ class CapturedStep:
 
     ``kernel_launches`` is what the hand-written kernels' wrappers counted
     while the step was captured, so what one replay launches; a replay goes
-    past the wrappers and leaves their own counts alone."""
+    past the wrappers and leaves their own counts alone.  ``marks`` are the
+    graph's first and last nodes, two timing events; replay through
+    ``marks.replay(self.graph, name)``."""
 
     kernels = (KNN5, VOTE, SEGSUM)
 
@@ -133,8 +143,11 @@ class CapturedStep:
         before = [k.launches for k in self.kernels]
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
+        self.marks = GraphMarks()
         with torch.cuda.graph(self.graph):
+            self.marks.first.record()
             self.last = self._step()
+            self.marks.last.record()
         self.capture_seconds = time.perf_counter() - t0
         self.kernel_launches = {k.source.name: k.launches - b
                                 for k, b in zip(self.kernels, before)}
@@ -234,17 +247,20 @@ class StageGraph(CapturedStep):
                     f"{self.stage} stage: input {tuple(src.shape)} "
                     f"{src.dtype} does not match the static buffer "
                     f"{tuple(dst.shape)} {dst.dtype}")
-        if self._staging is not None:
-            self._staging.load(*args)
-        else:
-            for dst, src in zip(static, leaves):
-                dst.copy_(src, non_blocking=True)
+        with span(self.stage + ".copy_in"):
+            if self._staging is not None:
+                self._staging.load(*args)
+            else:
+                for dst, src in zip(static, leaves):
+                    dst.copy_(src, non_blocking=True)
         if self.graph is None:
-            self.last = self._step()
+            with span(self.stage + ".launch"):
+                self.last = self._step()
         else:
-            self.graph.replay()
+            self.marks.replay(self.graph, self.stage)
         self.replays += 1
-        return _clone(self.last)
+        with span(self.stage + ".clone_out"):
+            return _clone(self.last)
 
 
 def stage_key(stage: str, cfg: PipelineConfig) -> tuple:

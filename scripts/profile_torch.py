@@ -12,9 +12,12 @@ Prints:
   * the card (``nvidia-smi`` name and power limit);
   * per-stage stream time (CUDA events around features, odometry, mapping)
     and host wall time per frame, both from the untraced frames;
-  * device busy share: kernel time per traced frame over untraced wall
-    time per frame (kernels on one stream do not overlap, so 1 - busy is
-    the idle share);
+  * the card's idle share from the program's own CUDA events over the
+    untraced frames (utils/timing.py ``event_idle_pct``, the benchmark's
+    ``idle_pct.events``): 100 x (launch waits + gaps between stages) /
+    (gaps + the stages' spans), the card waiting on the host outside graph
+    execution (gaps between kernels inside a graph are not in it; none on
+    the op-by-op path, which replays no graph);
   * kernels per frame on the device, and launches per frame from the host
     (the CUDA runtime's kernel launch, graph launch, copy and set calls);
   * the operators with the most device time, with their launch counts
@@ -61,6 +64,7 @@ from light_loam_tpu_torch.models.pipeline import (  # noqa: E402
     Pipeline,
     synthetic_frames,
 )
+from light_loam_tpu_torch.utils.timing import event_idle_pct  # noqa: E402
 
 
 # the staged path's regimes: the config each runs under
@@ -102,7 +106,10 @@ def measure(cfg, frames, n, top_n, smi, profile_name, eager=False) -> tuple:
             pipe.process_frame(xyz, mask)
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) * 1e3
-    stage_ms = {k: v.mean_ms for k, v in pipe.timers.device_report().items()}
+    report = pipe.timers.device_report()
+    stage_ms = {k: v.mean_ms for k, v in report.items()}
+    idle_pct = event_idle_pct({k: v.total_ms for k, v in report.items()},
+                              [k for k in report if "." not in k])
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof, run():
         for _, xyz, mask in frames[1 + n:1 + 2 * n]:
@@ -132,7 +139,7 @@ def measure(cfg, frames, n, top_n, smi, profile_name, eager=False) -> tuple:
         "frames_timed": n, "frames_traced": n,
         "wall_ms_per_frame": wall_ms / n,
         "stage_stream_ms_per_frame": stage_ms,
-        "device_busy_share": kernel_ms / wall_ms,
+        "idle_pct_events": idle_pct,
         "kernel_ms_per_frame": kernel_ms / n,
         "launches_per_frame": sum(e.count for e in on_device) / n,
         "host_launches_per_frame": host_launches / n,
@@ -144,8 +151,9 @@ def measure(cfg, frames, n, top_n, smi, profile_name, eager=False) -> tuple:
           f"ms/frame | kernels {kernel_ms / n:.2f} ms/frame in "
           f"{result['launches_per_frame']:.0f} kernels, "
           f"{result['host_launches_per_frame']:.0f} launches from the host "
-          f"| device busy "
-          f"{kernel_ms / wall_ms:.3f} | peak memory "
+          f"| device idle (program's events) "
+          + ("n/a" if idle_pct is None else f"{idle_pct:.2f} %")
+          + f" | peak memory "
           f"{result['peak_memory_mib']:.0f} MiB | dropped mapping frames "
           f"{pipe.dropped_mapping_frames}")
     print("stage stream ms/frame: " + ", ".join(

@@ -41,10 +41,14 @@ and are held to 1e-5; their twins with the default settings bitwise.
 The batched lanes (models/batch.py) launch each kernel once for all lanes
 through the kernels' vmap rules; a lane's result is bit for bit the single
 launch's.  Their graph is held to the eager vmapped body under
-deterministic sums, as the fused frame's is.  The test of a failed capture
-comes last in the file: it leaves a broken capture behind it.
+deterministic sums, as the fused frame's is.  The spans inside a stage
+(utils/timing.py) add up to the stage's own span, and a graph's span to
+the profiler's first-to-last kernel of the same replay.  The test of a
+failed capture comes last in the file: it leaves a broken capture behind
+it.
 """
 
+import contextlib
 import dataclasses
 import json
 import math
@@ -95,6 +99,7 @@ from light_loam_tpu_torch.ops.knn import (
 )
 from light_loam_tpu_torch.ops.voxel import compact_rows
 from light_loam_tpu_torch.utils.synthetic import World, simulate_scan
+from light_loam_tpu_torch.utils.timing import StageTimers
 
 torch.set_num_threads(2)
 
@@ -1494,6 +1499,83 @@ def test_failed_stage_capture_raises(cuda):
     assert got["calls"] <= stages.WARMUP_PASSES + 1
     assert got["cached"] == ["features"]
     assert got["frame"] == 0 and got["device"] == "cuda:0"
+
+
+@pytest.fixture(scope="module")
+def hdl64_sweeps():
+    """Three flagship sweeps as host arrays (the features stage stages
+    them through pinned memory, as a LiDAR driver hands them over)."""
+    cfg = tpl.PROFILES["hdl64"]
+    return cfg, [(xyz, mask) for _, xyz, mask in tpl.synthetic_frames(3, cfg)]
+
+
+def _timed_sweeps(cfg, sweeps, device, timers, last=None):
+    """The benchmark's odometry front end over ``sweeps``: each stage under
+    ``timers``, the pose read back; ``timers`` reset before the last sweep
+    (the first captures the graphs, the second replays them first), which
+    runs inside ``last`` when given."""
+    odo = OdometryState.init(cfg.scan.max_less_sharp, cfg.scan.max_less_flat,
+                             device)
+    for k, (xyz, mask) in enumerate(sweeps):
+        final = k == len(sweeps) - 1
+        if final:
+            timers.reset()
+        with last if final and last is not None else contextlib.nullcontext():
+            with timers.stage("features"):
+                feats = stages.run_features(xyz, mask, cfg, device)
+            with timers.stage("odometry"):
+                odo, out = stages.run_odometry(odo, feats, cfg)
+            timers.read(out.q_w)
+            torch.cuda.synchronize()
+    return timers.device_report()
+
+
+@pytest.mark.cuda
+def test_stage_spans_add_up_to_the_stage(cuda, hdl64_sweeps):
+    """One HDL-64 sweep: each stage's copy_in + launch + graph + clone_out
+    within 2 % of the stage's own events."""
+    cfg, sweeps = hdl64_sweeps
+    timers = StageTimers(device=True)
+    try:
+        report = _timed_sweeps(cfg, sweeps, cuda, timers)
+    finally:
+        fused.clear_graphs()
+    assert timers.missed == 0
+    for stage in ("features", "odometry"):
+        parts = sum(report[f"{stage}.{p}"].total_ms
+                    for p in ("copy_in", "launch", "graph", "clone_out"))
+        whole = report[stage].total_ms
+        assert report[f"{stage}.graph"].count == 1
+        assert parts == pytest.approx(whole, rel=0.02), (stage, report)
+    assert report["odometry.gap"].count == 1
+
+
+@pytest.mark.cuda
+def test_graph_span_matches_the_profilers_kernels(cuda, hdl64_sweeps):
+    """One profiled HDL-64 sweep: each stage's ``graph`` span within 5 % of
+    the first to the last device activity of its replay in the profiler's
+    timeline (those that share the cudaGraphLaunch call's correlation)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    cfg, sweeps = hdl64_sweeps
+    timers = StageTimers(device=True)
+    prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    try:
+        report = _timed_sweeps(cfg, sweeps, cuda, timers, last=prof)
+    finally:
+        fused.clear_graphs()
+    events = prof.profiler.kineto_results.events()
+    launches = sorted((e.start_ns(), e.correlation_id()) for e in events
+                      if e.name() == "cudaGraphLaunch")
+    assert len(launches) == 2
+    for (_, corr), stage in zip(launches, ("features", "odometry")):
+        acts = [e for e in events if "CUDA" in str(e.device_type())
+                and e.correlation_id() == corr]
+        assert len(acts) > 100, stage
+        first = min(e.start_ns() for e in acts)
+        last = max(e.start_ns() + e.duration_ns() for e in acts)
+        assert report[f"{stage}.graph"].mean_ms == pytest.approx(
+            (last - first) / 1e6, rel=0.05), stage
 
 
 @pytest.mark.cuda

@@ -46,3 +46,24 @@ def test_default_run_equals_eager(runs):
 
 def test_default_run_near_jax(runs):
     assert_near_jax(runs["graph"], runs["jax"], AGREE_M)
+
+
+def test_default_run_times_its_spans_and_counts_its_reads(runs):
+    """Each frame's spans inside the stages (models/stages.py), the host
+    spans round the pose read, the keyframe stack and the retire, and its
+    reads of the device: the two pose rows, and at the retire the mapped
+    pose, the keyframe stack and the three saturation counters."""
+    for key in ("graph", "eager"):
+        pipe, _ = runs[key]
+        timers = pipe.timers
+        for name in ("pose_read", "keyframe_stack", "retire"):
+            assert timers.stages[name].count == N_FRAMES, (key, name)
+        assert timers.reads.count == 9 * N_FRAMES, key
+        assert f"host reads: 9.0 a frame ({9 * N_FRAMES} in {N_FRAMES} " \
+            "frames)" in timers.report()
+    timers = runs["graph"][0].timers
+    for stage in ("features", "odometry", "mapping"):
+        for part in ("copy_in", "launch", "clone_out"):
+            assert timers.stages[f"{stage}.{part}"].count == N_FRAMES
+    assert not any(name.startswith("features.") for name in
+                   runs["eager"][0].timers.stages)
