@@ -8,7 +8,7 @@ in order (each phase prints one line of numbers; any failure is an uncaught
 exception and a non-zero exit):
 
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: nvcc the three kernels, all at once (seconds, ptxas resource
+  2. build: nvcc the four kernels, all at once (seconds, ptxas resource
      lines);
   3. knn5 vs its plain PyTorch version at the mapping stage's shapes; at
      the live counts the stage hands over, timed per call and per launch
@@ -20,6 +20,12 @@ exception and a non-zero exit):
      5, 158), timed per call and per launch on the device, beside its
      bound; then 4 and 8 lanes of R = 10, K = 163 under ``torch.vmap`` (one
      launch of R = 40 and 80), equal to 4 and 8 single launches;
+ 4b. the odometry's LM solve (csrc/lm.cu, one launch a call; no Pallas
+     twin) on every solve of 8 ring-road sweeps at the benchmark cell's
+     shapes (768 edge, 1536 plane factors), against the plain loop on the
+     card (q within 1e-5, t within 1e-4 m), the vote gate closed and open;
+     a repeat and 4 lanes under ``torch.vmap`` (one launch) bit for bit;
+     device ms per call beside its bound and the plain loop's, captured;
  3c. segment_sum (csrc/segsum.cu, the ordered voxel, store and refinement
      sums; no Pallas twin): phase 5's 12 frames staged op by op
      (``stages.eager()``, so every call is seen) and a refinement of
@@ -156,7 +162,10 @@ mapped frame, outside the graphs), and that replays times the launches
 counted at capture, summed over the fused graph or the three stage graphs,
 match the counts derived from its config; a traced replay of the fused
 frame confirms them kernel by kernel.  A run under ``stages.eager()``
-checks the wrappers' counts against the config's alone.
+checks the wrappers' counts against the config's alone.  The LM kernel
+counts one launch per odometry outer iteration where the corner vote is
+off, and none for the mapping stage or the sharded step, which run the
+plain loop.
 
 The last three lines are a JSON object with each kernel's numbers
 (``launches`` from the wrappers over the main-path phases, ``graph_launches``
@@ -242,6 +251,8 @@ from light_loam_tpu_torch.parallel.sharded import (
     shard_mapping_state,
     sharded_mapping_step,
 )
+from light_loam_tpu_torch.solver import EdgeFactors, FactorSet, PlaneFactors
+from light_loam_tpu_torch.solver.gauss_newton import LM, _lm_loop, lm_solve
 from light_loam_tpu_torch.solver.schur import schur_solve
 from light_loam_tpu_torch.utils.html_viewer import export_pipeline_html
 from light_loam_tpu_torch.utils.timing import StageTimers
@@ -423,6 +434,8 @@ VOTE_MAX_DIFF, VOTE_MAX_FRAC = 1.0, 0.01
 # expf of the pairs inside the exp band are not counted either.
 H100_FP32_FLOPS, H100_BYTES_PER_S = 67e12, 3.35e12
 H100_MUFU_PER_S = H100_FP32_FLOPS / 16
+# the hand-written kernels, each with its launch count
+KERNELS = (KNN5, VOTE, SEGSUM, LM)
 KNN_FLOP_PER_PAIR, VOTE_FLOP_PER_PAIR, VOTE_SQRT_PER_PAIR = 8, 19, 2
 
 
@@ -824,6 +837,174 @@ def phase_vote_lanes(dev) -> dict:
     return out
 
 
+# Phase 4b: the odometry's LM solve (csrc/lm.cu) on the inputs of ring-road
+# sweeps at the benchmark cell's shapes (768 edge and 1536 plane factors a
+# call, 6 calls a sweep), the plane vote's gate closed (sweeps 0-5) and open
+# (6-7: the plane factors vote-weighted and vote-masked)
+LM_FRAMES = 8
+LM_LANES = 4
+# the bounds tests/test_torch_odometry.py holds the port's pose to
+LM_Q_TOL, LM_T_TOL_M = 1e-5, 1e-4
+# FLOP of the normal equations alone: a residual row adds 6 weighted
+# Jacobian entries and 21 + 6 products to H and g (2 FLOP each), 3 rows an
+# edge and 1 a plane.  The transforms, the costs and the 6x6 solves are not
+# counted, so the bound stays a least time.
+LM_ROW_FLOP = 6 + 2 * 27
+
+
+def ring_frames(n_frames: int, cfg, seed: int = 0) -> list:
+    """(xyz, mask) host arrays of ``n_frames`` sweeps along the ring road of
+    ``World.loop(seed)`` (radius 25 m) at 1 m a sweep, the sensor facing
+    along the road: the benchmark cell's traffic."""
+    from light_loam_tpu_torch.utils.synthetic import (
+        World,
+        pad_cloud,
+        simulate_scan,
+    )
+
+    radius = 25.0
+    world = World.loop(seed=seed, radius=radius)
+    frames = []
+    for i in range(n_frames):
+        th = i / radius
+        pos = np.array([radius * np.sin(th), radius - radius * np.cos(th),
+                        0.0])
+        pts = simulate_scan(world, pos, sensor_yaw=th,
+                            n_rings=cfg.scan.n_scans,
+                            lower_deg=cfg.scan.lower_bound_deg,
+                            upper_deg=cfg.scan.upper_bound_deg,
+                            n_azimuth=1800, noise=0.01, seed=1000 + i)
+        frames.append(pad_cloud(pts, cfg.scan.max_points))
+    return frames
+
+
+def record_lm_calls(cfg, frames, dev) -> list:
+    """(frame, q0, t0, factors, keywords) of every ``lm_solve`` call that
+    ``odometry_step`` makes over ``frames`` on ``dev`` (op by op, as the
+    odometry stage's body), the tensors cloned."""
+    from light_loam_tpu_torch.models import odometry as odometry_module
+
+    calls = []
+    real = odometry_module.lm_solve
+    frame = [0]
+
+    def record(q, t, factors, **kw):
+        fs = FactorSet(*(None if f is None else type(f)(*(x.clone() for x in f))
+                         for f in factors))
+        calls.append((frame[0], q.clone(), t.clone(), fs, kw))
+        return real(q, t, factors, **kw)
+
+    state = OdometryState.init(cfg.scan.max_less_sharp,
+                               cfg.scan.max_less_flat, dev)
+    odometry_module.lm_solve = record
+    try:
+        for frame[0], (xyz, mask) in enumerate(frames):
+            feats = extract_features(torch.as_tensor(xyz).to(dev),
+                                     torch.as_tensor(mask).to(dev), cfg.scan)
+            state, _ = odometry_module.odometry_step(
+                state, feats, cfg.odometry, cfg.scan.scan_period,
+                read_live_count=False)
+    finally:
+        odometry_module.lm_solve = real
+    torch.cuda.synchronize()
+    return calls
+
+
+def lm_bound(n_edge: int, n_plane: int, n_iterations: int,
+             lanes: int = 1) -> tuple:
+    """lm_solve_edge_plane: the normal equations of every iteration
+    (LM_ROW_FLOP a residual row); it reads each factor once (11 floats and
+    a mask byte) and the pose, and writes the pose and the cost."""
+    flop = lanes * n_iterations * (3 * n_edge + n_plane) * LM_ROW_FLOP
+    nbytes = lanes * ((n_edge + n_plane) * 45 + 2 * 28 + 4)
+    return _bound(flop, nbytes)
+
+
+def _lm_args(call):
+    _, q0, t0, fs, kw = call
+    return q0, t0, fs, kw
+
+
+def phase_lm(dev) -> dict:
+    """Phase 4b: every LM solve of LM_FRAMES ring-road sweeps through the
+    kernel (``lm_solve`` takes it for the odometry's edge and plane factors)
+    and through the plain loop on the same card, q held within LM_Q_TOL and
+    t within LM_T_TOL_M, the gate closed and open; one launch a call; a
+    repeat bit for bit; LM_LANES calls as lanes of one launch under vmap,
+    each bit for bit its single launch; device ms of the kernel (single and
+    lanes), of the plain loop captured as a graph, and the bound."""
+    cfg = PROFILES["hdl64"]
+    calls = record_lm_calls(cfg, ring_frames(LM_FRAMES, cfg), dev)
+    gate = cfg.odometry.vote_start_frame
+    worst = {"closed": [0.0, 0.0], "open": [0.0, 0.0]}
+    for call in calls:
+        q0, t0, fs, kw = _lm_args(call)
+        before = LM.launches
+        got = lm_solve(q0, t0, fs, **kw)
+        if LM.launches != before + 1:
+            raise AssertionError("lm_solve did not launch csrc/lm.cu for "
+                                 "the odometry's edge and plane factors")
+        want = _lm_loop(q0, t0, fs, **kw)
+        dq = (got[0] - want[0]).abs().max().item()
+        dt = (got[1] - want[1]).abs().max().item()
+        w = worst["open" if call[0] > gate else "closed"]
+        w[0], w[1] = max(w[0], dq), max(w[1], dt)
+        if not (dq <= LM_Q_TOL and dt <= LM_T_TOL_M):
+            raise AssertionError(f"lm kernel, sweep {call[0]}: |dq| {dq:.3g} "
+                                 f"|dt| {dt:.3g} m against the plain loop")
+    q0, t0, fs, kw = _lm_args(calls[-1])
+    first, again = lm_solve(q0, t0, fs, **kw), lm_solve(q0, t0, fs, **kw)
+    if not all(torch.equal(a, b) for a, b in zip(first, again)):
+        raise AssertionError("lm kernel: two runs of one call differ")
+
+    lane_calls = [_lm_args(c) for c in calls[-LM_LANES:]]
+    stacked = [torch.stack(x) for x in zip(*(
+        (q, t, *c.edge, *c.plane) for q, t, c, _ in lane_calls))]
+
+    def lanes():
+        return torch.vmap(
+            lambda q, t, *f: lm_solve(q, t, FactorSet(
+                edge=EdgeFactors(*f[:6]), plane=PlaneFactors(*f[6:])), **kw))(
+            *stacked)
+
+    before = LM.launches
+    q_l, t_l, c_l = lanes()
+    if LM.launches != before + 1:
+        raise AssertionError("lm kernel: the lanes were not one launch")
+    for b, (q, t, c, kwb) in enumerate(lane_calls):
+        single = lm_solve(q, t, c, **kwb)
+        if not all(torch.equal(x[b], y) for x, y in zip((q_l, t_l, c_l),
+                                                        single)):
+            raise AssertionError(f"lm kernel: lane {b} differs from its "
+                                 "single launch")
+
+    Ne, Np = fs.edge.cp.shape[0], fs.plane.cp.shape[0]
+    kernel = functools.partial(lm_solve, q0, t0, fs, **kw)
+    plain = functools.partial(_lm_loop, q0, t0, fs, **kw)
+    out = dict(
+        n_edge=Ne, n_plane=Np, n_iterations=kw["n_iterations"],
+        calls=len(calls), worst=worst,
+        ms=_median_ms(kernel, 50), device_ms=_device_ms(kernel, 50),
+        plain_graph_ms=_graph_ms(plain, 10),
+        lanes_device_ms=_device_ms(lanes, 20),
+    )
+    out["bound_ms"], out["bound_by"] = lm_bound(Ne, Np, kw["n_iterations"])
+    out["lanes_bound_ms"], _ = lm_bound(Ne, Np, kw["n_iterations"], LM_LANES)
+    print(f"[4b lm] {len(calls)} solves of {LM_FRAMES} ring-road sweeps, "
+          f"{Ne} edge + {Np} plane factors, {kw['n_iterations']} iterations "
+          f"a call: max |q - plain| {worst['closed'][0]:.3g} / "
+          f"{worst['open'][0]:.3g}, max |t - plain| {worst['closed'][1]:.3g} / "
+          f"{worst['open'][1]:.3g} m (gate closed / open) | kernel "
+          f"{out['ms']:.4f} ms per call, {out['device_ms']:.4f} ms per launch "
+          f"on the device, bound {out['bound_ms']:.5f} ms ({out['bound_by']}), "
+          f"{out['bound_ms'] / out['device_ms']:.2%} of the bound | plain loop "
+          f"{out['plain_graph_ms']:.4f} ms per call as a captured graph | "
+          f"{LM_LANES} lanes in one launch {out['lanes_device_ms']:.4f} ms "
+          f"(bound {out['lanes_bound_ms']:.5f} ms), each bit for bit its "
+          "single launch; repeat bit for bit")
+    return out
+
+
 # Phase 3c: segment_sum at the main path's shapes, B lanes in one launch
 SEGSUM_LANES = 4
 # the modules that call segment_sum, by the name they import it under
@@ -1065,6 +1246,10 @@ def expected_launches(cfg, n_frames: int, n_mapped: int,
     (``keyframes``, n_mapped unless given: a graph replay holds none)."""
     o, m = cfg.odometry, cfg.mapping
     simple = (o.plane_vote_mode == "simple") + (o.corner_vote_mode == "simple")
+    # the LM kernel: every odometry outer iteration whose factors are the
+    # edge and plane families alone (no corner vote); mapping's solve and
+    # the sharded step run the plain loop
+    lm = (o.corner_vote_mode == "off") * o.outer_iterations * n_frames
     votes = (simple * o.outer_iterations * n_frames
              + (m.vote_mode == "simple") * m.outer_iterations * n_mapped)
     per_store = 1 if m.map_store_mode == "resort" else 2
@@ -1072,7 +1257,7 @@ def expected_launches(cfg, n_frames: int, n_mapped: int,
             + (2 + 2 * per_store) * n_mapped
             + (n_mapped if keyframes is None else keyframes))
     return {"knn.cu": 2 * m.outer_iterations * n_mapped, "vote.cu": votes,
-            "segsum.cu": sums}
+            "segsum.cu": sums, "lm.cu": lm}
 
 
 def replay_launches(cfg) -> dict:
@@ -1084,14 +1269,15 @@ def replay_launches(cfg) -> dict:
 def keyframe_launches(n: int) -> dict:
     """Launches the host loop makes around ``n`` fused frames: each frame's
     keyframe stack, one voxel downsample, outside the graph."""
-    return {"knn.cu": 0, "vote.cu": 0, "segsum.cu": n}
+    return {"knn.cu": 0, "vote.cu": 0, "segsum.cu": n, "lm.cu": 0}
 
 
 # the device functions of the csrc/ kernels that one launch by the wrapper
 # starts once (knn5 also starts its merge kernel once)
 KERNEL_FUNCTIONS = {"knn.cu": "knn5_segment_kernel",
                     "vote.cu": "compat_votes_kernel",
-                    "segsum.cu": "segment_sum_kernel"}
+                    "segsum.cu": "segment_sum_kernel",
+                    "lm.cu": "lm_solve_kernel"}
 
 
 def replay_kernel_counts(graph) -> tuple:
@@ -1141,7 +1327,7 @@ def graph_launches_since(graphs, replays) -> dict:
     """Launches made through the graphs' replays since their replay counts
     were ``replays``: each replay launches what the wrappers counted at
     its capture."""
-    names = [k.source.name for k in (KNN5, VOTE, SEGSUM)]
+    names = [k.source.name for k in KERNELS]
     return {name: sum(g.kernel_launches[name] * (g.replays - r)
                       for g, r in zip(graphs, replays)) for name in names}
 
@@ -2615,7 +2801,7 @@ def shard_rank(rank, backend, n, devices, init_method, npz_path, out_dir):
     the free run and the vote run, its lanes, its keyframes of the
     refinement and one call of each kernel; writes its numbers and any
     failed check to ``out_dir``."""
-    for k in (KNN5, VOTE, SEGSUM):
+    for k in KERNELS:
         if not k.library_path().exists():
             raise RuntimeError(f"rank {rank}: {k.source.name} was not built "
                                "by phase 2")
@@ -2663,7 +2849,7 @@ def shard_rank(rank, backend, n, devices, init_method, npz_path, out_dir):
                       for name, c in (("base", cfg), ("vote", vcfg))
                       if group.captures}
             replays = {name: g.replays for name, g in graphs.items()}
-            for k in (KNN5, VOTE, SEGSUM):
+            for k in KERNELS:
                 k.launches = 0
             stage("sharded steps")
             steps = _sharded_steps(group, z, cfg, "base", SHARD_FRAMES,
@@ -2672,8 +2858,7 @@ def shard_rank(rank, backend, n, devices, init_method, npz_path, out_dir):
                                   failures, free=True)
             vote = _sharded_steps(group, z, vcfg, "vote", VOTE_N_FRAMES,
                                   inputs, failures)
-            launches = {k.source.name: k.launches
-                        for k in (KNN5, VOTE, SEGSUM)}
+            launches = {k.source.name: k.launches for k in KERNELS}
         finally:
             knn_call.restore()
             vote_call.restore()
@@ -2688,7 +2873,8 @@ def shard_rank(rank, backend, n, devices, init_method, npz_path, out_dir):
         want = {"knn.cu": 2 * cfg.outer_iterations
                 * (2 * SHARD_FRAMES + VOTE_N_FRAMES),
                 "vote.cu": vcfg.outer_iterations * VOTE_N_FRAMES,
-                "segsum.cu": 4 * (2 * SHARD_FRAMES + VOTE_N_FRAMES)}
+                "segsum.cu": 4 * (2 * SHARD_FRAMES + VOTE_N_FRAMES),
+                "lm.cu": 0}
         total = {name: launches[name] + graph_launches[name] for name in want}
         if total != want or (graphs and any(launches.values())):
             failures.append(f"launches {launches} by the wrappers and "
@@ -2807,7 +2993,7 @@ def phase_sharded(kernels, p5=None, p13=None, p14=None) -> dict:
     q_ref, t_ref, _ = refine_window(*window, landmarks,
                                     n_iterations=REFINE_ITERATIONS)
 
-    names = ("knn.cu", "vote.cu", "segsum.cu")
+    names = tuple(k.source.name for k in KERNELS)
     launches = dict.fromkeys(names, 0)
     lane_launches = dict.fromkeys(names, 0)
     graph_launches = dict.fromkeys(names, 0)
@@ -3050,7 +3236,7 @@ def phase_vlp16(kernels) -> tuple:
 
 # the kernels' names in the JSON line, by source
 KERNEL_NAMES = (("knn5", "knn.cu"), ("compat_votes", "vote.cu"),
-                ("segment_sum", "segsum.cu"))
+                ("segment_sum", "segsum.cu"), ("lm_solve_edge_plane", "lm.cu"))
 
 
 def segsum_json(sums, launches, graph_launches, lane_launches, p15) -> dict:
@@ -3100,7 +3286,7 @@ def main(argv=None) -> int:
     t_start = time.perf_counter()
     smi = phase_device()
     dev = torch.device("cuda", 0)
-    kernels = (KNN5, VOTE, SEGSUM)
+    kernels = KERNELS
     phase_build(kernels)
     if args.only_sharded:
         p15 = phase_sharded(kernels)
@@ -3119,6 +3305,7 @@ def main(argv=None) -> int:
     knn_lanes = phase_knn_lanes(dev)
     vote = phase_vote(dev)
     vote_lanes = phase_vote_lanes(dev)
+    lm = phase_lm(dev)
     sums = phase_segsum(dev)
     p5 = phase_pipeline("5 pipeline", PROFILES["hdl64"], N_FRAMES,
                         JAX_MAPPED_POSITIONS, kernels)
@@ -3210,6 +3397,21 @@ def main(argv=None) -> int:
                                 "singles_device_ms", "bound_ms", "bound_by")}
              for v in vote_lanes.values()]},
         segsum_json(sums, launches, graph_launches, lane_launches, p15),
+        {"name": "lm_solve_edge_plane", "route": "cuda",
+         "source": "light_loam_tpu_torch/csrc/lm.cu", "replaces": None,
+         "launches": launches["lm.cu"],
+         "graph_launches": graph_launches["lm.cu"],
+         "lane_launches": lane_launches["lm.cu"],
+         "sharded_launches": p15["launches"]["lm.cu"],
+         "sharded_graph_launches": p15["graph_launches"]["lm.cu"],
+         "sharded_lane_launches": p15["lane_launches"]["lm.cu"],
+         "max_abs_err_q": max(w[0] for w in lm["worst"].values()),
+         "max_abs_err_t": max(w[1] for w in lm["worst"].values()),
+         **{k: lm[k] for k in ("n_edge", "n_plane", "n_iterations", "ms",
+                               "device_ms", "plain_graph_ms",
+                               "lanes_device_ms", "bound_ms", "bound_by",
+                               "lanes_bound_ms")},
+         "library_ms": None},
     ]}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

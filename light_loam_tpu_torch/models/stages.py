@@ -51,6 +51,7 @@ from light_loam_tpu_torch.ops.cuda_knn import KNN5
 from light_loam_tpu_torch.ops.cuda_segsum import SEGSUM
 from light_loam_tpu_torch.ops.cuda_vote import VOTE
 from light_loam_tpu_torch.ops.features import extract_features
+from light_loam_tpu_torch.solver.gauss_newton import LM
 from light_loam_tpu_torch.utils.timing import GraphMarks, span
 
 # eager passes of a step before its capture: they build the kernels at
@@ -114,7 +115,7 @@ class CapturedStep:
     graph's first and last nodes, two timing events; replay through
     ``marks.replay(self.graph, name)``."""
 
-    kernels = (KNN5, VOTE, SEGSUM)
+    kernels = (KNN5, VOTE, SEGSUM, LM)
 
     def _step(self):
         raise NotImplementedError

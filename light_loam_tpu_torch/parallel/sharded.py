@@ -58,6 +58,7 @@ from light_loam_tpu_torch.ops.cuda_segsum import SEGSUM
 from light_loam_tpu_torch.ops.cuda_vote import VOTE
 from light_loam_tpu_torch.ops.voxel import compact_rows, voxel_downsample
 from light_loam_tpu_torch.solver import FactorSet, PlaneNormFactors, lm_solve
+from light_loam_tpu_torch.solver.gauss_newton import LM
 
 
 # the single-tensor all-gather: ``all_gather_into_tensor``, which PyTorch
@@ -525,7 +526,7 @@ class ShardedStepGraph:
             torch.cuda.synchronize(self.device)
         self.warmup_seconds = time.perf_counter() - t0
 
-        kernels = (KNN5, VOTE, SEGSUM)
+        kernels = (KNN5, VOTE, SEGSUM, LM)
         before = [k.launches for k in kernels]
         counts = (self.group.collectives, self.group.bytes)
         t0 = time.perf_counter()

@@ -62,12 +62,17 @@ import pytest
 import torch
 
 from chip_smoke import (
+    LM_FRAMES,
+    LM_Q_TOL,
+    LM_T_TOL_M,
     expected_launches,
     graph_launches_since,
     keyframe_launches,
     latent_vote_config,
+    record_lm_calls,
     replay_kernel_counts,
     replay_launches,
+    ring_frames,
 )
 from light_loam_tpu_torch.core.frame import PointCloud
 from light_loam_tpu_torch.models import batch, fused, stages
@@ -98,12 +103,23 @@ from light_loam_tpu_torch.ops.knn import (
     surf_correspondences_grid,
 )
 from light_loam_tpu_torch.ops.voxel import compact_rows
+from light_loam_tpu_torch.solver import EdgeFactors, FactorSet, PlaneFactors
+from light_loam_tpu_torch.solver.gauss_newton import (
+    LM,
+    _identity,
+    _lm_loop,
+    lm_solve,
+    staged_bytes,
+    uses_lm_kernel,
+)
 from light_loam_tpu_torch.utils.synthetic import World, simulate_scan
 from light_loam_tpu_torch.utils.timing import StageTimers
 
 torch.set_num_threads(2)
 
 EPS32 = float(np.finfo(np.float32).eps)
+# the hand-written kernels, each with its launch count
+KERNELS = (KNN5, VOTE, SEGSUM, LM)
 
 
 @pytest.fixture
@@ -510,7 +526,7 @@ def test_cuda_pipeline_matches_cpu_and_counts_launches(cuda, latent):
         cfg = latent_vote_config(cfg)
     graphs = stages.stage_graphs(cfg, cuda)
     replays = [g.replays for g in graphs]
-    KNN5.launches = VOTE.launches = SEGSUM.launches = 0
+    _zero_launches()
     pipe, res = _run_synthetic(cfg, run, "cuda")
     n_mapped = sum(r.mapped for r in res)
     # the stages replay their graphs; the wrappers count the host loop's
@@ -518,7 +534,7 @@ def test_cuda_pipeline_matches_cpu_and_counts_launches(cuda, latent):
     assert _launches() == keyframe_launches(n_mapped)
     assert graph_launches_since(graphs, replays) == expected_launches(
         cfg, len(res), n_mapped, keyframes=0)
-    KNN5.launches = VOTE.launches = SEGSUM.launches = 0
+    _zero_launches()
     with stages.eager():
         eager, eager_res = _run_synthetic(cfg, run, "cuda")
     assert _launches() == expected_launches(cfg, len(res), n_mapped)
@@ -531,7 +547,12 @@ def test_cuda_pipeline_matches_cpu_and_counts_launches(cuda, latent):
 
 
 def _launches() -> dict:
-    return {k.source.name: k.launches for k in (KNN5, VOTE, SEGSUM)}
+    return {k.source.name: k.launches for k in KERNELS}
+
+
+def _zero_launches() -> None:
+    for k in KERNELS:
+        k.launches = 0
 
 
 def _run_synthetic(cfg, run, device):
@@ -592,7 +613,7 @@ def test_graph_replay_matches_eager_body(cuda, monkeypatch, deterministic_sums,
     real_body = fused._fused_frame_body
     monkeypatch.setattr(fused, "_fused_frame_body",
                         lambda *a: body_calls.append(1) or real_body(*a))
-    KNN5.launches = VOTE.launches = SEGSUM.launches = 0
+    _zero_launches()
     graph = fused.frame_graph(cfg, cuda)
     assert len(body_calls) == fused.WARMUP_PASSES + 1
     per_replay = replay_launches(cfg)
@@ -659,12 +680,12 @@ def _fused_and_staged(cuda, run):
     base = tpl.PROFILES["hdl64-small"]
     cfg = dataclasses.replace(base, fused_step=True)
     graph = fused.frame_graph(cfg, cuda)
-    KNN5.launches = VOTE.launches = SEGSUM.launches = 0
+    _zero_launches()
     pipe, res = _run_synthetic(cfg, run, "cuda")
     assert graph.replays == run["n_frames"] and all(r.mapped for r in res)
     # the fused run went through the graph alone, but for the host loop's
     # keyframe stack (one segment sum a frame)
-    assert KNN5.launches == 0 and VOTE.launches == 0
+    assert KNN5.launches == VOTE.launches == LM.launches == 0
     assert SEGSUM.launches == run["n_frames"]
     staged, sres = _run_synthetic(base, run, "cuda")
     assert len(pipe._keyframes) == len(staged._keyframes) == run["n_frames"]
@@ -826,7 +847,7 @@ def test_batched_graph_replay_matches_eager_body(cuda, deterministic_sums):
     assert graph.kernel_launches == per_replay
     assert replay_kernel_counts(graph)[0] == per_replay
 
-    KNN5.launches = VOTE.launches = SEGSUM.launches = 0
+    _zero_launches()
     state_g = batch.init_batch_state(cfg, B, cuda)
     state_e = batch.init_batch_state(cfg, B, cuda)
     rows = []
@@ -838,7 +859,7 @@ def test_batched_graph_replay_matches_eager_body(cuda, deterministic_sums):
                 state_g, x, m, cfg)
         finally:
             torch.cuda.set_sync_debug_mode("default")
-        assert KNN5.launches == VOTE.launches == SEGSUM.launches == 0
+        assert not any(_launches().values())
         state_e, out_e, mout_e = batch._batched_body(state_e, x, m, cfg)
         for got, want in ((out_g.t_w, out_e.t_w), (out_g.q_w, out_e.q_w),
                           (mout_g.t_w, mout_e.t_w), (mout_g.q_w, mout_e.q_w),
@@ -849,7 +870,7 @@ def test_batched_graph_replay_matches_eager_body(cuda, deterministic_sums):
         assert (mout_e.map_surf_points > 0).all()
         assert torch.equal(mout_g.map_surf_points, mout_e.map_surf_points)
         rows.append(mout_g.t_w.cpu().numpy())
-        KNN5.launches = VOTE.launches = SEGSUM.launches = 0
+        _zero_launches()
     assert graph.replays == 3
     # the lanes saw different worlds
     assert np.abs(rows[-1][0] - rows[-1][1]).max() > 1e-3
@@ -861,14 +882,14 @@ def test_batched_graph_replay_matches_eager_body(cuda, deterministic_sums):
                                    rtol=0, atol=GRAPH_ATOL)
 
     fused.frame_graph(cfg, cuda, chunk=3, lanes=B)
-    KNN5.launches = VOTE.launches = SEGSUM.launches = 0
+    _zero_launches()
     state_c, (oq, ot, mq, mt) = batch.batched_chunk_step(
         batch.init_batch_state(cfg, B, cuda), xs, ms, cfg)
     assert mt.shape == (3, B, 3) and oq.shape == (3, B, 4)
     np.testing.assert_allclose(mt.cpu().numpy(), np.stack(rows), rtol=0,
                                atol=GRAPH_ATOL)
     assert state_c.mapping.frame.tolist() == [3] * B
-    assert KNN5.launches == VOTE.launches == SEGSUM.launches == 0
+    assert not any(_launches().values())
 
 
 # the windowed refinement (models/refine.py): the card against the CPU, in
@@ -1038,7 +1059,7 @@ def test_sharded_step_world_one_over_nccl(cuda, nccl_world_one):
     assert graph.replays == 4
     # segment sums: the two owned-stack downsamples and two store re-sorts
     assert graph.kernel_launches == {"knn.cu": per_replay, "vote.cu": 0,
-                                     "segsum.cu": 4}
+                                     "segsum.cu": 4, "lm.cu": 0}
     # the wrappers counted the warm-up and the capture pass and no replay;
     # the single-device steps launched their own
     assert KNN5.launches == (fused.WARMUP_PASSES + 1 + 4) * per_replay
@@ -1079,7 +1100,8 @@ def test_captured_sharded_step_equals_eager_body(cuda, nccl_world_one,
     assert graph.replays == 4 and graph.collectives == 0
     assert graph.kernel_launches == {
         "knn.cu": 2 * cfg.outer_iterations,
-        "vote.cu": cfg.outer_iterations if vote else 0, "segsum.cu": 4}
+        "vote.cu": cfg.outer_iterations if vote else 0, "segsum.cu": 4,
+        "lm.cu": 0}
 
 
 @pytest.mark.cuda
@@ -1427,7 +1449,7 @@ def test_staged_pipeline_captured_equals_eager(cuda, monkeypatch, regime):
     try:
         graphs = stages.stage_graphs(cfg, cuda)
         replays = [g.replays for g in graphs]
-        KNN5.launches = VOTE.launches = SEGSUM.launches = 0
+        _zero_launches()
         pipe, res = _run_synthetic(cfg, run, "cuda")
         n_mapped = sum(r.mapped for r in res)
         assert _launches() == keyframe_launches(n_mapped)
@@ -1477,6 +1499,200 @@ FAILED_STAGE_CAPTURE = textwrap.dedent("""
         cached=sorted(key[0] for key in stages._GRAPHS),
         device=str(pipe.odo_state.q_w.device))))
 """)
+
+
+# the odometry's LM solve (csrc/lm.cu) against the plain loop on the card,
+# on every solve of ring-road sweeps at the benchmark cell's shapes (768
+# edge and 1536 plane factors, 8 iterations a call), the vote gate closed
+# (sweeps 0-5) and open (6-7); chip_smoke.py phase 4b makes the same run
+@pytest.fixture(scope="module")
+def lm_calls():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc) to build and launch the "
+                    "kernels")
+    cfg = tpl.PROFILES["hdl64"]
+    return cfg, record_lm_calls(cfg, ring_frames(LM_FRAMES, cfg),
+                                torch.device("cuda", 0))
+
+
+def _lm_both(q0, t0, fs, kw):
+    """(kernel, plain loop) of one solve; the kernel launched once."""
+    before = LM.launches
+    got = lm_solve(q0, t0, fs, **kw)
+    assert LM.launches == before + 1
+    return got, _lm_loop(q0, t0, fs, **kw)
+
+
+@pytest.mark.cuda
+def test_lm_kernel_matches_plain_loop_on_ring_sweeps(lm_calls):
+    """Every solve of the sweeps: q within 1e-5 and t within 1e-4 m of the
+    plain loop on the same card (tests/test_torch_odometry.py's bounds),
+    the cost within 1e-5 relative; both gate states seen, the open one
+    with vote weights and vote masks."""
+    cfg, calls = lm_calls
+    gate = cfg.odometry.vote_start_frame
+    assert len(calls) == LM_FRAMES * cfg.odometry.outer_iterations
+    assert {c[0] > gate for c in calls} == {False, True}
+    for frame, q0, t0, fs, kw in calls:
+        assert fs.edge.cp.shape[0] == 768 and fs.plane.cp.shape[0] == 1536
+        assert uses_lm_kernel(q0.device, q0.dtype, fs, _identity)
+        if frame > gate:
+            assert not torch.all(fs.plane.weight[fs.plane.mask] == 1.0)
+        got, want = _lm_both(q0, t0, fs, kw)
+        np.testing.assert_allclose(got[0].cpu().numpy(),
+                                   want[0].cpu().numpy(), rtol=0,
+                                   atol=LM_Q_TOL)
+        np.testing.assert_allclose(got[1].cpu().numpy(),
+                                   want[1].cpu().numpy(), rtol=0,
+                                   atol=LM_T_TOL_M)
+        np.testing.assert_allclose(got[2].item(), want[2].item(), rtol=1e-5,
+                                   atol=1e-6)
+
+
+def _lm_open_gate_call(calls):
+    _, q0, t0, fs, kw = calls[-1]
+    return q0, t0, fs, kw
+
+
+@pytest.mark.cuda
+def test_lm_kernel_all_factors_masked(lm_calls):
+    """No active factor: the pose comes back unchanged and the cost is 0,
+    as from the plain loop."""
+    q0, t0, fs, kw = _lm_open_gate_call(lm_calls[1])
+    fs = FactorSet(edge=fs.edge._replace(mask=torch.zeros_like(fs.edge.mask)),
+                   plane=fs.plane._replace(
+                       mask=torch.zeros_like(fs.plane.mask)))
+    for q, t, cost in _lm_both(q0, t0, fs, kw):
+        assert torch.equal(q, q0) and torch.equal(t, t0)
+        assert cost.item() == 0.0
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("system", ["zero", "indefinite"])
+def test_lm_kernel_singular_system_takes_no_step(lm_calls, system):
+    """A system the solve cannot use gives a zero step, which the cost does
+    not accept (lambda then grows x4, inside the kernel as in the plain
+    loop): every factor at weight 0 (H = 0, g = 0, the damping alone on
+    the diagonal), or lambda_init = -1 (the damped diagonal cancels, the
+    Cholesky meets a non-positive pivot).  The pose comes back unchanged
+    and the cost is the starting cost, as from the plain loop."""
+    q0, t0, fs, kw = _lm_open_gate_call(lm_calls[1])
+    if system == "zero":
+        fs = FactorSet(
+            edge=fs.edge._replace(weight=torch.zeros_like(fs.edge.weight)),
+            plane=fs.plane._replace(weight=torch.zeros_like(fs.plane.weight)))
+    else:
+        kw = dict(kw, lambda_init=-1.0)
+    (q, t, cost), (qp, tp, cp) = _lm_both(q0, t0, fs, kw)
+    assert torch.equal(q, q0) and torch.equal(t, t0)
+    assert torch.equal(qp, q0) and torch.equal(tp, t0)
+    np.testing.assert_allclose(cost.item(), cp.item(), rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.cuda
+def test_lm_kernel_non_finite_input_takes_no_step(lm_calls):
+    """One active plane factor at NaN: H is not finite, the Cholesky fails,
+    every step is zero; the pose comes back unchanged and the cost NaN, as
+    from the plain loop."""
+    q0, t0, fs, kw = _lm_open_gate_call(lm_calls[1])
+    cp = fs.plane.cp.clone()
+    cp[int(torch.nonzero(fs.plane.mask)[0, 0]), 0] = float("nan")
+    fs = FactorSet(edge=fs.edge, plane=fs.plane._replace(cp=cp))
+    for q, t, cost in _lm_both(q0, t0, fs, kw):
+        assert torch.equal(q, q0) and torch.equal(t, t0)
+        assert math.isnan(cost.item())
+
+
+@pytest.mark.cuda
+def test_lm_kernel_lanes_are_one_launch(lm_calls):
+    """The last 4 solves as lanes under ``torch.vmap``: one launch, each
+    lane bit for bit its own single launch."""
+    calls = [c[1:] for c in lm_calls[1][-4:]]
+    kw = calls[0][3]
+    stacked = [torch.stack(x) for x in zip(*(
+        (q, t, *fs.edge, *fs.plane) for q, t, fs, _ in calls))]
+
+    def body(q, t, *f):
+        return lm_solve(q, t, FactorSet(edge=EdgeFactors(*f[:6]),
+                                        plane=PlaneFactors(*f[6:])), **kw)
+
+    before = LM.launches
+    lanes = torch.vmap(body)(*stacked)
+    assert LM.launches == before + 1
+    for b, (q0, t0, fs, kwb) in enumerate(calls):
+        single = lm_solve(q0, t0, fs, **kwb)
+        for x, y in zip(lanes, single):
+            assert torch.equal(x[b], y)
+
+
+@pytest.mark.cuda
+def test_lm_kernel_repeats_bit_for_bit(lm_calls):
+    """Two runs of each open-gate solve on one card are equal bit for
+    bit: the block sums add in a fixed order."""
+    cfg, calls = lm_calls
+    for _, q0, t0, fs, kw in calls[-cfg.odometry.outer_iterations:]:
+        a, b = lm_solve(q0, t0, fs, **kw), lm_solve(q0, t0, fs, **kw)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+@pytest.mark.cuda
+def test_lm_kernel_factors_past_shared_memory(cuda):
+    """Factors too many for shared memory go through the scratch buffer
+    (a 4x wider sensor's capacities), with sweep fractions below 1 (the
+    slerp of the distortion hook): the same solve as the plain loop, and
+    the cost falls."""
+    rng = np.random.default_rng(7)
+    Ne, Np = 4 * 768, 4 * 1536
+    assert staged_bytes(Ne, Np) == 0
+    q_true = torch.tensor([0.01, -0.02, 0.03, 1.0])
+    q_true = q_true / q_true.norm()
+    t_true = torch.tensor([0.3, -0.1, 0.05])
+
+    def world(cp):
+        from light_loam_tpu_torch.core.quaternion import quat_rotate
+        return quat_rotate(q_true[None], cp) + t_true
+
+    def f32(x):
+        return torch.as_tensor(np.asarray(x, np.float32))
+
+    ecp = f32(rng.uniform(-30, 30, (Ne, 3)))
+    d = f32(rng.normal(size=(Ne, 3)))
+    pw = world(ecp) + f32(rng.normal(scale=0.01, size=(Ne, 3)))
+    edge = EdgeFactors(ecp, pw + d, pw - d, f32(rng.uniform(0.5, 1, Ne)),
+                       torch.ones(Ne), torch.as_tensor(rng.random(Ne) < 0.8))
+    pcp = f32(rng.uniform(-30, 30, (Np, 3)))
+    n = f32(rng.normal(size=(Np, 3)))
+    n = n / n.norm(dim=1, keepdim=True)
+    plane = PlaneFactors(pcp, world(pcp) + f32(rng.normal(scale=0.01,
+                                                         size=(Np, 3))),
+                         n, f32(rng.uniform(0.5, 1, Np)),
+                         f32(rng.uniform(0.5, 2, Np)),
+                         torch.as_tensor(rng.random(Np) < 0.8))
+    fs = FactorSet(edge=EdgeFactors(*(x.to(cuda) for x in edge)),
+                   plane=PlaneFactors(*(x.to(cuda) for x in plane)))
+    q0 = torch.tensor([0.0, 0.0, 0.0, 1.0], device=cuda)
+    t0 = torch.zeros(3, device=cuda)
+    kw = dict(n_iterations=8, huber_delta=0.1)
+    got, want = _lm_both(q0, t0, fs, kw)
+    np.testing.assert_allclose(got[0].cpu().numpy(), want[0].cpu().numpy(),
+                               rtol=0, atol=LM_Q_TOL)
+    np.testing.assert_allclose(got[1].cpu().numpy(), want[1].cpu().numpy(),
+                               rtol=0, atol=LM_T_TOL_M)
+    start = _lm_loop(q0, t0, fs, n_iterations=0, huber_delta=0.1)[2]
+    assert got[2].item() < 0.5 * start.item()
+
+
+@pytest.mark.cuda
+def test_odometry_stage_graph_launches_the_lm_kernel(cuda):
+    """The flagship stages captured: the odometry graph launches the LM
+    kernel once per outer iteration (6 a replay), the mapping graph (edge
+    and plane-norm factors) and the features graph never."""
+    cfg = tpl.PROFILES["hdl64"]
+    graphs = dict(zip(stages.STAGES, stages.stage_graphs(cfg, cuda)))
+    assert graphs["odometry"].kernel_launches["lm.cu"] == \
+        cfg.odometry.outer_iterations == 6
+    assert graphs["mapping"].kernel_launches["lm.cu"] == 0
+    assert graphs["features"].kernel_launches["lm.cu"] == 0
 
 
 @pytest.mark.cuda

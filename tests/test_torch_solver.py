@@ -195,3 +195,157 @@ def test_lm_solve_with_all_six_families_matches_jax():
     np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-4, atol=1e-6)
     # every family pulls toward the true pose
     assert np.linalg.norm(tt.numpy() - t_true) < 0.05
+
+
+# The odometry's solve as one CUDA kernel (csrc/lm.cu, behind the custom
+# op light_loam_tpu_torch::lm_solve_edge_plane): which calls take it, and
+# its CPU kernel, the plain loop, here.  The kernel itself is held to the
+# plain loop on the card (tests/test_torch_cuda.py).
+
+def _edge_plane_set(seed, n=120):
+    """FactorSet of the edge and plane families that a pose off the
+    identity satisfies up to ~1 cm (the JAX-parity inputs above)."""
+    rng = np.random.default_rng(seed)
+    q_true = np.asarray(tq.quat_normalize(torch.as_tensor(
+        [0.04, -0.02, 0.03, 1.0])))
+    t_true = np.array([0.5, -0.3, 0.1], np.float32)
+    return ts.FactorSet(**{
+        kind: _build(ts, kind, _consistent_factors(kind, rng, q_true, t_true,
+                                                   n), torch.as_tensor)[0]
+        for kind in ("edge", "plane")})
+
+
+def _plane_norm_set(seed):
+    f = _factors("plane_norm", np.random.default_rng(seed), n=16)
+    return ts.PlaneNormFactors(**{k: torch.as_tensor(v) for k, v in f.items()})
+
+
+def _edge_scalar_set(seed):
+    f = _factors("edge_scalar", np.random.default_rng(seed), n=16)
+    return ts.EdgeScalarFactors(**{k: torch.as_tensor(v)
+                                   for k, v in f.items()})
+
+
+_ROUTES = {
+    # (device, dtype, families, allreduce) -> takes the kernel
+    "odometry_on_cuda": ("cuda", torch.float32, ("edge", "plane"), None, True),
+    "cpu_tensors": ("cpu", torch.float32, ("edge", "plane"), None, False),
+    "float64": ("cuda", torch.float64, ("edge", "plane"), None, False),
+    "mapping_plane_norm": ("cuda", torch.float32, ("edge", "plane_norm"),
+                           None, False),
+    "corner_vote_edge_scalar": ("cuda", torch.float32,
+                                ("edge", "plane", "edge_scalar"), None,
+                                False),
+    "sharded_allreduce": ("cuda", torch.float32, ("edge", "plane"),
+                          lambda x: x, False),
+    "edge_only": ("cuda", torch.float32, ("edge",), None, False),
+}
+
+
+@pytest.mark.parametrize("route", sorted(_ROUTES))
+def test_lm_kernel_routing(route):
+    """``lm_solve`` takes the CUDA kernel only for CUDA float32 tensors on
+    one process (``allreduce`` the identity) with exactly the edge and
+    plane families: mapping's plane-norm solve, the corner vote's scalar
+    edges, the sharded step's allreduce and CPU tensors keep the loop."""
+    from light_loam_tpu_torch.solver import gauss_newton as gn
+
+    device, dtype, families, allreduce, want = _ROUTES[route]
+    base = _edge_plane_set(0)
+    extra = {"plane_norm": _plane_norm_set(1),
+             "edge_scalar": _edge_scalar_set(2)}
+    fs = ts.FactorSet(**{name: getattr(base, name, None) if name in
+                         ("edge", "plane") else extra[name]
+                         for name in families})
+    got = gn.uses_lm_kernel(torch.device(device), dtype, fs,
+                            gn._identity if allreduce is None else allreduce)
+    assert got is want
+
+
+def test_lm_solve_on_cpu_never_reaches_the_op(monkeypatch):
+    """On CPU tensors ``lm_solve`` runs the plain loop without the op."""
+    from light_loam_tpu_torch.solver import gauss_newton as gn
+
+    def refuse(*args):
+        raise AssertionError("the op was called for CPU tensors")
+
+    monkeypatch.setattr(gn, "lm_solve_edge_plane", refuse)
+    q, t, _ = ts.lm_solve(torch.tensor([0.0, 0.0, 0.0, 1.0]), torch.zeros(3),
+                          _edge_plane_set(3), n_iterations=4)
+    assert torch.isfinite(q).all() and torch.isfinite(t).all()
+
+
+@pytest.mark.parametrize("case", ["consistent", "weighted_masked",
+                                  "all_masked"])
+def test_lm_op_cpu_kernel_equals_lm_solve(case):
+    """The op's CPU kernel is ``lm_solve``'s loop: the same floats, bit for
+    bit, on the JAX-parity inputs, with vote-like weights and masks, and
+    with every factor masked (the pose unchanged, the cost 0)."""
+    fs = _edge_plane_set(4)
+    rng = np.random.default_rng(5)
+    if case != "consistent":
+        n = fs.plane.mask.shape[0]
+        plane = fs.plane._replace(
+            weight=torch.as_tensor(rng.uniform(0, 5, n).astype(np.float32)),
+            mask=fs.plane.mask & torch.as_tensor(rng.random(n) < 0.6))
+        fs = fs._replace(plane=plane)
+    if case == "all_masked":
+        fs = ts.FactorSet(
+            edge=fs.edge._replace(mask=torch.zeros_like(fs.edge.mask)),
+            plane=fs.plane._replace(mask=torch.zeros_like(fs.plane.mask)))
+    q0 = torch.tensor([0.0, 0.0, 0.0, 1.0])
+    t0 = torch.zeros(3)
+    want = ts.lm_solve(q0, t0, fs, n_iterations=8, huber_delta=0.1)
+    got = torch.ops.light_loam_tpu_torch.lm_solve_edge_plane(
+        q0, t0, *fs.edge, *fs.plane, 8, 0.1, 1e-4, 1)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if case == "all_masked":
+        assert torch.equal(got[0], q0) and torch.equal(got[1], t0)
+        assert got[2].item() == 0.0
+    else:
+        assert np.linalg.norm(got[1].numpy() - [0.5, -0.3, 0.1]) < 0.05
+
+
+def test_lm_op_vmap_equals_a_loop_over_lanes(recwarn):
+    """Under ``torch.vmap`` the op's vmap rule (no per-lane fallback: the
+    fallback's warning would be recorded) equals a loop of single calls,
+    bit for bit; an operand without a lane axis is shared by every lane."""
+    import warnings
+
+    from light_loam_tpu_torch.solver import gauss_newton as gn
+
+    sets = [_edge_plane_set(10 + b) for b in range(3)]
+    q0 = torch.stack([tq.quat_normalize(torch.tensor([0.01 * b, 0.0, 0.0,
+                                                      1.0]))
+                      for b in range(3)])
+    t0 = torch.zeros(3)
+    edge = [torch.stack(x) for x in zip(*(s.edge for s in sets))]
+    plane = list(sets[0].plane)
+    warnings.simplefilter("always")
+    got = torch.vmap(
+        lambda q, *e: gn.lm_solve_edge_plane(q, t0, *e, *plane, 6, 0.1, 1e-4,
+                                             1))(q0, *edge)
+    assert not [w for w in recwarn if "batching rule" in str(w.message)]
+    for b in range(3):
+        want = gn.lm_solve_edge_plane(q0[b], t0, *(e[b] for e in edge),
+                                      *plane, 6, 0.1, 1e-4, 1)
+        for g, w in zip(got, want):
+            assert torch.equal(g[b], w)
+
+
+def test_lm_kernel_constants_match_the_source():
+    """The wrapper's copies of lm.cu's staged floats a factor, and the
+    shared memory it asks for at the odometry's capacities (staged) and
+    past the card's 227 KB (a scratch buffer instead)."""
+    import re
+
+    from light_loam_tpu_torch.solver import gauss_newton as gn
+
+    src = (gn.LM.source).read_text()
+    for name in ("EDGE_FLOATS", "PLANE_FLOATS"):
+        m = re.search(rf"constexpr int {name} = (\d+);", src)
+        assert m and int(m.group(1)) == getattr(gn, name)
+    assert "extern \"C\" int lm_solve_launch(" in src
+    assert gn.staged_bytes(768, 1536) == 4 * (13 * 768 + 12 * 1536) == 113664
+    assert gn.staged_bytes(4 * 768, 4 * 1536) == 0
