@@ -19,6 +19,12 @@ Per frame (``mapping_step``, ref:1502-2354):
   5. transformUpdate (ref:119-123,2101);
   6. register the stacks into the map + voxel dedup (ref:2104-2168).
 
+The step's three phases are spans of the open timers (utils/timing.py
+``phase``; in a captured graph, timing events captured into it):
+``mapping.search`` (steps 1-3, and in each outer iteration the 5-NN
+searches, the line and plane fits and the vote), ``mapping.solve`` (each
+outer iteration's LM solve) and ``mapping.merge`` (steps 5-6).
+
 Whether the grid recentered decides between the sorted merge and the full
 re-sort.  The step computes both stores and selects on the device, so it
 makes no host read and a CUDA graph can hold it (models/fused.py); on the
@@ -48,6 +54,7 @@ from light_loam_tpu_torch.solver import (
     PlaneNormFactors,
     lm_solve,
 )
+from light_loam_tpu_torch.utils.timing import phase
 
 
 class MapStore(NamedTuple):
@@ -234,7 +241,9 @@ def _gather_local(store: MapStore, center: torch.Tensor, cfg: MappingConfig,
 
 
 def _solve3x3(A: torch.Tensor, b: torch.Tensor):
-    """Batched 3×3 solve via the adjugate (A (...,3,3), b (...,3))."""
+    """Batched 3×3 solve via the adjugate (A (...,3,3), b (...,3)).  The
+    refinement's landmark fit solves its raw normal equations with it; the
+    mapping step's plane fit does not (``plane_normal``)."""
     a = A
     c00 = a[..., 1, 1] * a[..., 2, 2] - a[..., 1, 2] * a[..., 2, 1]
     c01 = a[..., 1, 2] * a[..., 2, 0] - a[..., 1, 0] * a[..., 2, 2]
@@ -279,12 +288,50 @@ def line_fit_factors(stack_xyz, stack_mask, d, near, cfg: MappingConfig):
     )
 
 
+def plane_normal(near: torch.Tensor):
+    """The least-squares solution n of A n = -1 (A the rows of ``near``,
+    (..., k, 3)), as laserMapping.cpp solves it by a QR in double
+    (ref:1948-1960), and whether it is determined: (n (..., 3), ok).
+
+    The normal equations AᵀA n = -Aᵀ1 of raw coordinates square A's
+    conditioning, and tens of metres from the map's origin float32 is left
+    nothing to solve them with.  So they are written in the neighbours'
+    centred coordinates: c the mean, q_i = p_i - c, M = Σ q_i q_iᵀ; then
+    AᵀA = M + k ccᵀ and, by Sherman-Morrison,
+
+        n = -k adj(M) c / (det M + k cᵀ adj(M) c),
+
+    the denominator being det(AᵀA).  By Cauchy-Binet adj(M) = ½ Σ_ij w_ij
+    w_ijᵀ with w_ij = q_i × q_j, and det M = ⅙ Σ_ijk (q_i · w_jk)², so the
+    denominator is a sum of squares computed from the centred points alone
+    and nothing cancels.  It vanishes, relative to its scale (tr M)² (tr M +
+    k |c|²), for collinear neighbours and for a plane through the origin,
+    where A is rank-deficient: ``ok`` is false below 1e-15 of the scale
+    (about where a plane's distance from the origin falls to float32's
+    resolution of the coordinates), and n is 0 there."""
+    k = near.shape[-2]
+    c = near.mean(dim=-2)
+    q = near - c[..., None, :]
+    a, b = q[..., :, None, :], q[..., None, :, :]
+    w = torch.stack([a[..., 1] * b[..., 2] - a[..., 2] * b[..., 1],
+                     a[..., 2] * b[..., 0] - a[..., 0] * b[..., 2],
+                     a[..., 0] * b[..., 1] - a[..., 1] * b[..., 0]], dim=-1)
+    s = (w * c[..., None, None, :]).sum(dim=-1)            # c · w_ij
+    adj_c = 0.5 * (s[..., None] * w).sum(dim=(-3, -2))
+    t = (q[..., :, None, None, :] * w[..., None, :, :, :]).sum(dim=-1)
+    det = (t * t).sum(dim=(-3, -2, -1)) / 6.0
+    den = det + (0.5 * k) * (s * s).sum(dim=(-2, -1))
+    tr = (q * q).sum(dim=(-2, -1))
+    scale = tr * tr * (tr + k * (c * c).sum(dim=-1))
+    ok = den > 1e-15 * scale
+    safe = torch.where(ok, den, torch.ones_like(den))
+    return -k * adj_c / safe[..., None], ok
+
+
 def plane_fit_factors(stack_xyz, stack_mask, d, near, cfg: MappingConfig):
     """Plane factors from the 5-NN least-squares fit A·n = −1
-    (ref:1948-2036), given the neighbour sets."""
-    AtA = torch.einsum("qni,qnj->qij", near, near)
-    Atb = -near.sum(dim=1)
-    nvec, solv_ok = _solve3x3(AtA, Atb)
+    (ref:1948-2036, ``plane_normal``), given the neighbour sets."""
+    nvec, solv_ok = plane_normal(near)
     norm = torch.sqrt(torch.clamp(torch.sum(nvec * nvec, dim=-1), min=1e-20))
     neg_d = 1.0 / norm
     n_hat = nvec / norm[:, None]
@@ -392,101 +439,107 @@ def mapping_step(
     cfg: MappingConfig,
 ) -> Tuple[MappingState, MappingOutput]:
     check_mapping_config(cfg)
-    # 1. initial guess from odometry (ref:113-117)
-    q_w = quat.quat_normalize(quat.quat_multiply(state.q_wm, q_odom))
-    t_w = quat.quat_rotate(state.q_wm, t_odom) + state.t_wm
+    with phase("mapping.search"):
+        # 1. initial guess from odometry (ref:113-117)
+        q_w = quat.quat_normalize(quat.quat_multiply(state.q_wm, q_odom))
+        t_w = quat.quat_rotate(state.q_wm, t_odom) + state.t_wm
 
-    # 2. recenter grid
-    corner_store, surf_store, cen, center = _recenter(state, t_w, cfg)
+        # 2. recenter grid
+        corner_store, surf_store, cen, center = _recenter(state, t_w, cfg)
 
-    # 3. local map + stacks
-    local_c_xyz, local_c_mask, ovf_c = _gather_local(
-        corner_store, center, cfg, cfg.local_corner_capacity)
-    local_s_xyz, local_s_mask, ovf_s = _gather_local(
-        surf_store, center, cfg, cfg.local_surf_capacity)
-    stack_c_xyz, _, stack_c_mask, _ = voxel_downsample(
-        corner_last.xyz, corner_last.rel, corner_last.mask,
-        cfg.line_resolution, cfg.stack_corner_capacity,
-    )
-    stack_s_xyz, _, stack_s_mask, _ = voxel_downsample(
-        surf_last.xyz, surf_last.rel, surf_last.mask,
-        cfg.plane_resolution, cfg.stack_surf_capacity,
-    )
-    n_local_c = local_c_mask.sum(dtype=torch.int32)
-    n_local_s = local_s_mask.sum(dtype=torch.int32)
-    n_stack_c = stack_c_mask.sum(dtype=torch.int32)
-    n_stack_s = stack_s_mask.sum(dtype=torch.int32)
-    big_enough = (n_local_c > cfg.min_corner_map_points) & (
-        n_local_s > cfg.min_surf_map_points)
-    use_vote = cfg.vote_mode != "off" and state.frame > cfg.vote_start_frame
+        # 3. local map + stacks
+        local_c_xyz, local_c_mask, ovf_c = _gather_local(
+            corner_store, center, cfg, cfg.local_corner_capacity)
+        local_s_xyz, local_s_mask, ovf_s = _gather_local(
+            surf_store, center, cfg, cfg.local_surf_capacity)
+        stack_c_xyz, _, stack_c_mask, _ = voxel_downsample(
+            corner_last.xyz, corner_last.rel, corner_last.mask,
+            cfg.line_resolution, cfg.stack_corner_capacity,
+        )
+        stack_s_xyz, _, stack_s_mask, _ = voxel_downsample(
+            surf_last.xyz, surf_last.rel, surf_last.mask,
+            cfg.plane_resolution, cfg.stack_surf_capacity,
+        )
+        n_local_c = local_c_mask.sum(dtype=torch.int32)
+        n_local_s = local_s_mask.sum(dtype=torch.int32)
+        n_stack_c = stack_c_mask.sum(dtype=torch.int32)
+        n_stack_s = stack_s_mask.sum(dtype=torch.int32)
+        big_enough = (n_local_c > cfg.min_corner_map_points) & (
+            n_local_s > cfg.min_surf_map_points)
+        use_vote = (cfg.vote_mode != "off"
+                    and state.frame > cfg.vote_start_frame)
+        n_cf = torch.zeros((), dtype=torch.int32, device=t_w.device)
+        n_sf = torch.zeros((), dtype=torch.int32, device=t_w.device)
 
     # 4. scan-to-map refinement (outer × LM)
-    n_cf = torch.zeros((), dtype=torch.int32, device=t_w.device)
-    n_sf = torch.zeros((), dtype=torch.int32, device=t_w.device)
     for _ in range(cfg.outer_iterations):
-        d_c, near_c = _neighbours(stack_c_xyz, n_stack_c, local_c_xyz,
-                                  local_c_mask, n_local_c, q_w, t_w, cfg)
-        ef = line_fit_factors(stack_c_xyz, stack_c_mask & big_enough,
-                              d_c, near_c, cfg)
-        d_s, near_s = _neighbours(stack_s_xyz, n_stack_s, local_s_xyz,
-                                  local_s_mask, n_local_s, q_w, t_w, cfg)
-        pf = plane_fit_factors(stack_s_xyz, stack_s_mask & big_enough,
-                               d_s, near_s, cfg)
-        if cfg.vote_mode != "off":
-            # latent mapping-stage vote, "simple" or "full"
-            # (laserMapping.cpp:2057-2072): src = stack point, tgt = 5-NN
-            # centroid; survivors keep their plane factor, the rest are
-            # dropped
-            sel, w = graphvote.run_vote(
-                cfg.vote_mode, stack_s_xyz, near_s.mean(dim=1), pf.mask,
-                n_regions=cfg.vote_regions,
-                chunk_capacity=(cfg.stack_surf_capacity // cfg.vote_regions
-                                + cfg.vote_regions),
-                score_threshold=cfg.vote_score_threshold,
-                resolution=cfg.vote_resolution,
-                selected_ratio=cfg.vote_selected_ratio,
-                low_vote_count=cfg.vote_low_vote_count,
-                low_vote_weight=cfg.vote_low_vote_weight,
-                high_vote_weight=cfg.vote_high_vote_weight,
-                backend=cfg.vote_backend,
+        with phase("mapping.search"):
+            d_c, near_c = _neighbours(stack_c_xyz, n_stack_c, local_c_xyz,
+                                      local_c_mask, n_local_c, q_w, t_w, cfg)
+            ef = line_fit_factors(stack_c_xyz, stack_c_mask & big_enough,
+                                  d_c, near_c, cfg)
+            d_s, near_s = _neighbours(stack_s_xyz, n_stack_s, local_s_xyz,
+                                      local_s_mask, n_local_s, q_w, t_w, cfg)
+            pf = plane_fit_factors(stack_s_xyz, stack_s_mask & big_enough,
+                                   d_s, near_s, cfg)
+            if cfg.vote_mode != "off":
+                # latent mapping-stage vote, "simple" or "full"
+                # (laserMapping.cpp:2057-2072): src = stack point, tgt = 5-NN
+                # centroid; survivors keep their plane factor, the rest are
+                # dropped
+                sel, w = graphvote.run_vote(
+                    cfg.vote_mode, stack_s_xyz, near_s.mean(dim=1), pf.mask,
+                    n_regions=cfg.vote_regions,
+                    chunk_capacity=(cfg.stack_surf_capacity // cfg.vote_regions
+                                    + cfg.vote_regions),
+                    score_threshold=cfg.vote_score_threshold,
+                    resolution=cfg.vote_resolution,
+                    selected_ratio=cfg.vote_selected_ratio,
+                    low_vote_count=cfg.vote_low_vote_count,
+                    low_vote_weight=cfg.vote_low_vote_weight,
+                    high_vote_weight=cfg.vote_high_vote_weight,
+                    backend=cfg.vote_backend,
+                )
+                pf = pf._replace(
+                    mask=pf.mask & (sel | ~use_vote),
+                    weight=torch.where(use_vote & cfg.vote_apply_weights, w,
+                                       pf.weight),
+                )
+        with phase("mapping.solve"):
+            q_w, t_w, _cost = lm_solve(
+                q_w, t_w, FactorSet(edge=ef, plane_norm=pf),
+                n_iterations=cfg.inner_iterations,
+                huber_delta=cfg.huber_delta,
             )
-            pf = pf._replace(
-                mask=pf.mask & (sel | ~use_vote),
-                weight=torch.where(use_vote & cfg.vote_apply_weights, w,
-                                   pf.weight),
-            )
-        q_w, t_w, _cost = lm_solve(
-            q_w, t_w, FactorSet(edge=ef, plane_norm=pf),
-            n_iterations=cfg.inner_iterations,
-            huber_delta=cfg.huber_delta,
+            n_cf = ef.mask.sum(dtype=torch.int32)
+            n_sf = pf.mask.sum(dtype=torch.int32)
+
+    with phase("mapping.merge"):
+        # 5. refresh odom→map correction (ref:119-123)
+        q_wm = quat.quat_normalize(
+            quat.quat_multiply(q_w, quat.quat_inverse(q_odom)))
+        t_wm = t_w - quat.quat_rotate(q_wm, t_odom)
+
+        # 6. register the stacks into the map
+        recentered = torch.any(cen != state.cen)
+        reg_c = quat.quat_rotate(q_w[None, :], stack_c_xyz) + t_w[None, :]
+        reg_s = quat.quat_rotate(q_w[None, :], stack_s_xyz) + t_w[None, :]
+        corner_store = _merge_into_store(
+            corner_store, reg_c, stack_c_mask, cen, cfg,
+            cfg.line_resolution, cfg.map_corner_capacity, recentered)
+        surf_store = _merge_into_store(
+            surf_store, reg_s, stack_s_mask, cen, cfg,
+            cfg.plane_resolution, cfg.map_surf_capacity, recentered)
+
+        new_state = MappingState(
+            corner=corner_store, surf=surf_store, cen=cen, q_wm=q_wm,
+            t_wm=t_wm, frame=state.frame + 1,
         )
-        n_cf = ef.mask.sum(dtype=torch.int32)
-        n_sf = pf.mask.sum(dtype=torch.int32)
-
-    # 5. refresh odom→map correction (ref:119-123)
-    q_wm = quat.quat_normalize(quat.quat_multiply(q_w, quat.quat_inverse(q_odom)))
-    t_wm = t_w - quat.quat_rotate(q_wm, t_odom)
-
-    # 6. register the stacks into the map
-    recentered = torch.any(cen != state.cen)
-    reg_c = quat.quat_rotate(q_w[None, :], stack_c_xyz) + t_w[None, :]
-    reg_s = quat.quat_rotate(q_w[None, :], stack_s_xyz) + t_w[None, :]
-    corner_store = _merge_into_store(
-        corner_store, reg_c, stack_c_mask, cen, cfg,
-        cfg.line_resolution, cfg.map_corner_capacity, recentered)
-    surf_store = _merge_into_store(
-        surf_store, reg_s, stack_s_mask, cen, cfg,
-        cfg.plane_resolution, cfg.map_surf_capacity, recentered)
-
-    new_state = MappingState(
-        corner=corner_store, surf=surf_store, cen=cen, q_wm=q_wm, t_wm=t_wm,
-        frame=state.frame + 1,
-    )
-    out = MappingOutput(
-        q_w=q_w, t_w=t_w,
-        corner_factors=n_cf, surf_factors=n_sf,
-        map_corner_points=corner_store.mask.sum(dtype=torch.int32),
-        map_surf_points=surf_store.mask.sum(dtype=torch.int32),
-        local_overflow=ovf_c + ovf_s,
-    )
+        out = MappingOutput(
+            q_w=q_w, t_w=t_w,
+            corner_factors=n_cf, surf_factors=n_sf,
+            map_corner_points=corner_store.mask.sum(dtype=torch.int32),
+            map_surf_points=surf_store.mask.sum(dtype=torch.int32),
+            local_overflow=ovf_c + ovf_s,
+        )
     return new_state, out

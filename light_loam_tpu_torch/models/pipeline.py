@@ -16,8 +16,10 @@ dropped for mapping while odometry goes on.  With ``sync_mapping`` (the
 default) every step retires before its frame returns.
 Besides the stages, the frame's timers (``Pipeline.timers``) hold host
 spans of the pose read (``pose_read``), the keyframe stack
-(``keyframe_stack``) and the retire of a mapping step (``retire``), and
-count every read of the card on the frame path (``StageTimers.read``).
+(``keyframe_stack``) and the retire of a mapping step (``retire``), count
+every read of the card on the frame path (``StageTimers.read``), and sum
+the line and plane factors each retired mapping step kept on the card
+(``mapping.lines``, ``mapping.planes``: ``StageTimers.count``).
 ``refine_recent_keyframes`` re-estimates the newest buffered keyframes
 jointly against plane landmarks of the map (models/refine.py).
 """
@@ -147,6 +149,9 @@ class Pipeline:
             return
         out = self._pending_map_out
         read = self.timers.read
+        # the factors the step kept, summed only when the timers report
+        self.timers.count("mapping.lines", out.corner_factors)
+        self.timers.count("mapping.planes", out.surf_factors)
         with self.timers.host("retire"):
             self.map_state = self._pending_map_state
             q = read(out.q_w)

@@ -32,6 +32,10 @@ just before it to the graph's first node: the launch wait),
 ``<stage>.graph`` (on a card only: the graph's first node to its last,
 marked by two timing events captured into it) and ``<stage>.clone_out``
 (the clones of the outputs).  On the CPU ``<stage>.launch`` times the body.
+The mapping body's phases (``mapping.search``, ``mapping.solve``,
+``mapping.merge``, models/mapping.py) are timing events captured into the
+mapping graph, so each replay gives their device ms too; on the CPU they
+are spans of the body.
 """
 
 from __future__ import annotations
@@ -52,7 +56,7 @@ from light_loam_tpu_torch.ops.cuda_segsum import SEGSUM
 from light_loam_tpu_torch.ops.cuda_vote import VOTE
 from light_loam_tpu_torch.ops.features import extract_features
 from light_loam_tpu_torch.solver.gauss_newton import LM
-from light_loam_tpu_torch.utils.timing import GraphMarks, span
+from light_loam_tpu_torch.utils.timing import GraphMarks, span, untimed
 
 # eager passes of a step before its capture: they build the kernels at
 # first use and let the allocator, cuBLAS and cuSOLVER set up their handles
@@ -112,8 +116,10 @@ class CapturedStep:
     ``kernel_launches`` is what the hand-written kernels' wrappers counted
     while the step was captured, so what one replay launches; a replay goes
     past the wrappers and leaves their own counts alone.  ``marks`` are the
-    graph's first and last nodes, two timing events; replay through
-    ``marks.replay(self.graph, name)``."""
+    graph's first and last nodes, two timing events, and the events of the
+    ``phase``s of the step (utils/timing.py); replay through
+    ``marks.replay(self.graph, name)``.  The warm-up and the capture record
+    nothing into the timers of the stage that captures the step."""
 
     kernels = (KNN5, VOTE, SEGSUM, LM)
 
@@ -128,6 +134,10 @@ class CapturedStep:
         runs on the static buffers as allocated (empty frames from the
         initial state), which every call overwrites with the caller's, so
         it advances no run."""
+        with untimed():
+            self._warm_up_and_capture()
+
+    def _warm_up_and_capture(self) -> None:
         main = torch.cuda.current_stream(self.device)
         t0 = time.perf_counter()
         side = torch.cuda.Stream(self.device)
@@ -145,7 +155,7 @@ class CapturedStep:
         t0 = time.perf_counter()
         self.graph = torch.cuda.CUDAGraph()
         self.marks = GraphMarks()
-        with torch.cuda.graph(self.graph):
+        with torch.cuda.graph(self.graph), self.marks.capturing():
             self.marks.first.record()
             self.last = self._step()
             self.marks.last.record()

@@ -20,7 +20,12 @@ names: host ms, and on ``device=True`` timers the device ms between CUDA
 events on the current stream.  A captured graph carries two timing events
 as its first and last nodes (``GraphMarks``), so each replay gives the
 launch wait (an event recorded just before ``replay()`` to the graph's
-first node) and the graph's own time (first node to last).  Each top-level
+first node) and the graph's own time (first node to last).  ``phase`` is a
+span that a stage may open several times, its times in one top-level stage
+added into one sample (the mapping step's search, solve and merge, each
+once per outer iteration); inside a graph's capture it records two timing
+events into the graph instead, so that each replay gives the phase's
+device time, folded as the graph's own.  Each top-level
 stage also records ``<stage>.gap``: from the end of the previous top-level
 stage of the same timers to its own start, device time in which the card
 waited on the host between stages; a gap across which a ``torch.profiler``
@@ -69,21 +74,31 @@ class StageStats:
 
 
 class _Pair:
-    """A span's two device events; ``closed`` once folded or dropped."""
+    """A span's device events: (start, end) intervals, whose times add up
+    to one sample; ``closed`` once folded or dropped."""
 
-    __slots__ = ("name", "start", "end", "closed")
+    __slots__ = ("name", "intervals", "closed")
 
-    def __init__(self, name: str, start, end):
-        self.name, self.start, self.end = name, start, end
+    def __init__(self, name: str, intervals):
+        self.name, self.intervals = name, list(intervals)
         self.closed = False
 
     def reached(self) -> bool:
-        # start was recorded before end on the same stream
-        return self.end.query()
+        # every event was recorded before the last end on the same stream
+        return self.intervals[-1][1].query()
 
+    def events(self):
+        return [ev for pair in self.intervals for ev in pair]
+
+
+# calls of ``StageTimers.count`` whose tensors are kept before one sum
+_COUNT_FOLD = 1024
 
 _OPEN: ContextVar[Optional["StageTimers"]] = ContextVar(
     "light_loam_tpu_torch_open_timers", default=None)
+# the GraphMarks of the graph being captured now, if any
+_CAPTURING: ContextVar[Optional["GraphMarks"]] = ContextVar(
+    "light_loam_tpu_torch_capturing_marks", default=None)
 
 
 def _cuda_event():
@@ -120,6 +135,41 @@ def span(name: str):
                 yield
 
 
+@contextmanager
+def phase(name: str):
+    """A span that may open several times in one stage: its host and device
+    ms in one top-level stage add up to one sample of ``name``.  Inside the
+    capture of a graph (``GraphMarks.capturing``) it records two timing
+    events into the graph instead, and each replay of the graph gives the
+    phase's device ms in the same way."""
+    marks = _CAPTURING.get()
+    if marks is not None:
+        start = marks._record()
+        try:
+            yield
+        finally:
+            marks.phases.setdefault(name, []).append((start, marks._record()))
+        return
+    timers = _OPEN.get()
+    with _profiler_range(name) or nullcontext():
+        if timers is None:
+            yield
+        else:
+            with timers._part(name):
+                yield
+
+
+@contextmanager
+def untimed():
+    """No timers open inside the block: a graph's warm-up and capture
+    passes record no span into the timers of the stage that captures it."""
+    token = _OPEN.set(None)
+    try:
+        yield
+    finally:
+        _OPEN.reset(token)
+
+
 class GraphMarks:
     """Two timing events captured into a CUDA graph as its first and last
     nodes (record ``first`` before the captured work and ``last`` after
@@ -127,14 +177,36 @@ class GraphMarks:
     under open ``device=True`` timers it records ``<name>.launch`` (an
     event just before the call to ``first``: the launch wait) and
     ``<name>.graph`` (``first`` to ``last``: the graph's kernels and the
-    gaps between them).  They are folded at the graph's next replay with
+    gaps between them), and each ``phase`` captured into the graph under
+    its own name.  They are folded at the graph's next replay with
     ``query()`` (a replay not finished by then is counted in the timers'
     ``missed``) or by the timers themselves, whichever comes first."""
 
     def __init__(self):
-        self.first = torch.cuda.Event(enable_timing=True, external=True)
-        self.last = torch.cuda.Event(enable_timing=True, external=True)
+        self.first = self._event()
+        self.last = self._event()
+        # name -> (start, end) events of each phase captured into the graph
+        self.phases: Dict[str, list] = {}
         self._sample = None    # (timers, pairs) of the last timed replay
+
+    @staticmethod
+    def _event():
+        return torch.cuda.Event(enable_timing=True, external=True)
+
+    def _record(self):
+        ev = self._event()
+        ev.record()
+        return ev
+
+    @contextmanager
+    def capturing(self):
+        """The block is the graph's capture: ``phase``s inside it record
+        their events into the graph."""
+        token = _CAPTURING.set(self)
+        try:
+            yield
+        finally:
+            _CAPTURING.reset(token)
 
     def replay(self, graph, name: str) -> None:
         if self._sample is not None:
@@ -157,8 +229,10 @@ class GraphMarks:
         timers._host(name + ".launch", ms)
         if before is not None:
             self._sample = (timers, (
-                timers._pair(name + ".launch", before, self.first),
-                timers._pair(name + ".graph", self.first, self.last)))
+                timers._pair(name + ".launch", [(before, self.first)]),
+                timers._pair(name + ".graph", [(self.first, self.last)]),
+                *(timers._pair(ph, spans)
+                  for ph, spans in self.phases.items())))
 
 
 @dataclass
@@ -175,6 +249,8 @@ class StageTimers:
     missed: int = 0
     # gaps between stages across which a profiler started or stopped
     profiler_gaps: int = 0
+    # name -> [folded total, tensors not yet summed, calls] of ``count``
+    counters: Dict[str, list] = field(default_factory=dict)
     _frame_start: Optional[float] = None
     _pending: List[_Pair] = field(default_factory=list)
     _free: list = field(default_factory=list)     # events to record again
@@ -182,6 +258,8 @@ class StageTimers:
     _last_end: object = None    # end event of the last top-level stage
     _last_profiling: bool = False   # whether a profiler recorded then
     _depth: int = 0
+    # name -> [intervals, host ms] of the phases of the open top-level stage
+    _phases: Dict[str, list] = field(default_factory=dict)
 
     @contextmanager
     def stage(self, name: str):
@@ -197,17 +275,20 @@ class StageTimers:
                 start = self._event() if self.device else None
                 if top and start is not None and self._last_end is not None:
                     if profiling == self._last_profiling:
-                        self._pair(name + ".gap", self._last_end, start)
+                        self._pair(name + ".gap", [(self._last_end, start)])
                     else:
                         self.profiler_gaps += 1
                 t0 = time.perf_counter()
                 try:
                     yield
                 finally:
+                    if top:
+                        self._close_phases()
                     if start is not None:
-                        pair = self._pair(name, start, self._event())
+                        end = self._event()
+                        self._pair(name, [(start, end)])
                         if top:
-                            self._hold_last(pair.end)
+                            self._hold_last(end)
                             self._last_profiling = _profiling()
                             self._fold(wait=False)
                     self._host(name, (time.perf_counter() - t0) * 1000.0)
@@ -233,6 +314,30 @@ class StageTimers:
         out = x.cpu().numpy()
         self.reads.add((time.perf_counter() - t0) * 1000.0)
         return out
+
+    def count(self, name: str, x: torch.Tensor) -> None:
+        """Add ``x`` (a 0-d integer tensor, on the card or not) to the
+        counter ``name``.  The call keeps ``x`` and launches nothing; the
+        kept tensors are summed where they live every ``_COUNT_FOLD`` calls
+        and by ``counter_report()``, which alone reads them."""
+        acc = self.counters.setdefault(name, [0, [], 0])
+        acc[1].append(x)
+        acc[2] += 1
+        if len(acc[1]) >= _COUNT_FOLD:
+            self._fold_counter(acc)
+
+    def counter_report(self) -> Dict[str, tuple]:
+        """name -> (total, calls) of every counter (reads the card)."""
+        for acc in self.counters.values():
+            self._fold_counter(acc)
+        return {name: (int(total), calls)
+                for name, (total, _, calls) in self.counters.items()}
+
+    @staticmethod
+    def _fold_counter(acc: list) -> None:
+        if acc[1]:
+            acc[0] = acc[0] + torch.stack(acc[1]).sum(dtype=torch.int64)
+            acc[1] = []
 
     def frame_done(self) -> None:
         if self._frame_start is not None:
@@ -280,6 +385,7 @@ class StageTimers:
         self.overruns = 0
         self.missed = 0
         self.profiler_gaps = 0
+        self.counters.clear()
 
     def report(self) -> str:
         lines = [
@@ -291,6 +397,10 @@ class StageTimers:
             f"{name} (device): mean {st.mean_ms:.3f} ms, max "
             f"{st.max_ms:.3f} ms ({st.count}x)"
             for name, st in sorted(self.device_report().items())
+        ]
+        lines += [
+            f"{name}: {total / max(calls, 1):.1f} a call ({total} in {calls})"
+            for name, (total, calls) in sorted(self.counter_report().items())
         ]
         r = self.reads
         lines.append(
@@ -321,8 +431,29 @@ class StageTimers:
             yield
         finally:
             if start is not None:
-                self._pair(name, start, self._event())
+                self._pair(name, [(start, self._event())])
             self._host(name, (time.perf_counter() - t0) * 1000.0)
+
+    @contextmanager
+    def _part(self, name: str):
+        """A part of the phase ``name``, recorded as one sample with its
+        other parts at the end of the top-level stage."""
+        acc = self._phases.setdefault(name, [[], 0.0])
+        start = self._event() if self.device else None
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            if start is not None:
+                acc[0].append((start, self._event()))
+            acc[1] += (time.perf_counter() - t0) * 1000.0
+
+    def _close_phases(self) -> None:
+        for name, (spans, ms) in self._phases.items():
+            if spans:
+                self._pair(name, spans)
+            self._host(name, ms)
+        self._phases.clear()
 
     def _event(self):
         """An event of these timers recorded on the current stream."""
@@ -351,16 +482,16 @@ class StageTimers:
             self._use(self._last_end, -1)
         self._last_end = ev
 
-    def _pair(self, name: str, start, end) -> _Pair:
-        pair = _Pair(name, start, end)
-        self._use(start, 1)
-        self._use(end, 1)
+    def _pair(self, name: str, intervals) -> _Pair:
+        pair = _Pair(name, intervals)
+        for ev in pair.events():
+            self._use(ev, 1)
         self._pending.append(pair)
         return pair
 
     def _close(self, pair: _Pair) -> None:
         self.device_stages.setdefault(pair.name, StageStats()).add(
-            pair.start.elapsed_time(pair.end))
+            sum(start.elapsed_time(end) for start, end in pair.intervals))
         pair.closed = True
 
     def _settle(self, pairs: Iterable[_Pair]) -> None:
@@ -384,13 +515,13 @@ class StageTimers:
         for pair in self._pending:
             if not pair.closed:
                 if wait:
-                    pair.end.synchronize()
+                    pair.intervals[-1][1].synchronize()
                 elif not pair.reached():
                     keep.append(pair)
                     continue
                 self._close(pair)
-            self._use(pair.start, -1)
-            self._use(pair.end, -1)
+            for ev in pair.events():
+                self._use(ev, -1)
         self._pending = keep
 
 

@@ -525,6 +525,18 @@ def literal_full_vote(src, tgt, n_regions=10, edge_threshold=0.95,
     return selected
 
 
+def plane_lstsq(near, plane_gate):
+    """One surf point's plane (ref:1948-2036): n from A n = -1 over its 5
+    neighbours by least squares in double (the C++'s colPivHouseholderQr).
+    (unit normal, 1 / |n|, every neighbour within ``plane_gate``)."""
+    n, *_ = np.linalg.lstsq(near, -np.ones(len(near)), rcond=None)
+    nrm = np.linalg.norm(n)
+    neg_oa = 1.0 / nrm
+    n_hat = n / nrm
+    return n_hat, neg_oa, bool(np.all(np.abs(near @ n_hat + neg_oa)
+                                      <= plane_gate))
+
+
 def oracle_mapping_frame(map_corner_xyz, map_surf_xyz,
                          stack_corner_xyz, stack_surf_xyz,
                          q_w, t_w, outer_iterations=2, inner_iterations=4,
@@ -579,12 +591,8 @@ def oracle_mapping_frame(map_corner_xyz, map_surf_xyz,
         p_cp, p_n, p_d = [], [], []
         for i in range(len(st_s)):
             if d5[i, 4] < knn_gate_sq:
-                near = map_s[idx[i]]
-                n, *_ = np.linalg.lstsq(near, -np.ones(5), rcond=None)
-                nrm = np.linalg.norm(n)
-                neg_oa = 1.0 / nrm
-                n_hat = n / nrm
-                if np.all(np.abs(near @ n_hat + neg_oa) <= plane_gate):
+                n_hat, neg_oa, ok = plane_lstsq(map_s[idx[i]], plane_gate)
+                if ok:
                     p_cp.append(st_s[i])
                     p_n.append(n_hat)
                     p_d.append(neg_oa)

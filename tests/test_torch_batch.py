@@ -13,13 +13,21 @@ Tolerances:
   * each lane against the port's own ``odometry_step`` / ``mapping_step``
     run on that lane alone, one step from the lane's carried state: 1e-5 m
     (the same ops on the same values; vmap only changes how a contraction
-    is blocked: measured 2.5e-8 m on one mapping step).  The file runs on
-    one CPU thread: with two, the batched and the unbatched GEMM of the
-    normal equations split their sums differently, and one mapping step of
-    three identical lanes moved 1.3e-5 m from the single lane's; over
-    frames such differences grow through the float32 plane-fit gates to
-    mm (ROADMAP.md Queue 3), as in tests/test_batch.py;
-  * against ``light_loam_tpu.models.batch.batched_frame_step``: the bands
+    is blocked: measured 3.9e-7 m on an odometry step and 1.2e-7 m on a
+    mapping step).  The mapping step is fed the batched run's own odometry
+    of the lane (pose, corner_last, surf_last): from the unbatched
+    odometry's, ~1e-8 m apart, one mapping step can end mm apart, since a
+    plane set or a line gate decided otherwise in the first outer
+    iteration moves the second's 5-NN sets.  The file runs on one CPU
+    thread: with two, the batched and the unbatched GEMM of the normal
+    equations split their sums differently, and one mapping step of three
+    identical lanes moved 1.3e-5 m from the single lane's; over frames
+    such differences grow through the gates to mm, as in
+    tests/test_batch.py;
+  * against ``light_loam_tpu.models.batch.batched_frame_step``, its planes
+    fit by tests/oracle.py's float64 least squares (tests/oracle_planes.py;
+    the package's own float32 adjugate decides the plane gate by rounding
+    tens of metres out and moved a step 1.6 cm from the port's): the bands
     of tests/test_torch_fused.py, from the JAX package's carried state 1e-3
     m / 1e-4 for odometry and 1e-2 m / 1e-3 for mapping per step (jitted
     XLA contracts multiply-adds, tests/test_torch_odometry.py), and over
@@ -39,6 +47,7 @@ import torch
 from light_loam_tpu import config as jconfig
 from light_loam_tpu.models import batch as jbatch
 from light_loam_tpu.utils.synthetic import World, pad_cloud, simulate_scan
+from oracle_planes import oracle_planes
 from light_loam_tpu_torch import config as tconfig
 from light_loam_tpu_torch import convert
 from light_loam_tpu_torch.models import batch as tbatch
@@ -122,18 +131,20 @@ def port_run(lanes):
 
 @pytest.fixture(scope="module")
 def jax_run(lanes):
-    """The JAX package's batched run: per frame the state before it (numpy
-    leaves) and (odom_q, odom_t, map_q, map_t)."""
+    """The JAX package's batched run, its planes fit by tests/oracle.py's
+    float64 least squares (tests/oracle_planes.py): per frame the state
+    before it (numpy leaves) and (odom_q, odom_t, map_q, map_t)."""
     xs, ms = lanes
     state = jbatch.init_batch_state(JCFG, B)
     steps = []
-    for x, m in zip(xs, ms):
-        before = tuple(jax.tree_util.tree_map(np.asarray, s)._asdict()
-                       for s in (state.odometry, state.mapping))
-        state, odo, mout = jbatch.batched_frame_step(
-            state, jnp.asarray(x), jnp.asarray(m), JCFG)
-        steps.append((before, tuple(np.asarray(a) for a in (
-            odo.q_w, odo.t_w, mout.q_w, mout.t_w))))
+    with oracle_planes():
+        for x, m in zip(xs, ms):
+            before = tuple(jax.tree_util.tree_map(np.asarray, s)._asdict()
+                           for s in (state.odometry, state.mapping))
+            state, odo, mout = jbatch.batched_frame_step(
+                state, jnp.asarray(x), jnp.asarray(m), JCFG)
+            steps.append((before, tuple(np.asarray(a) for a in (
+                odo.q_w, odo.t_w, mout.q_w, mout.t_w))))
     return steps
 
 
@@ -146,16 +157,21 @@ def _lane(tree, b):
 def test_batched_lanes_match_single_lane_steps(lanes, port_run):
     xs, ms = lanes
     rows, before, state = port_run
+    after = before[1:] + [state]
     for k in range(N_FRAMES):
         for b in range(B):
             feats = extract_features(_t(xs[k, b], torch.float32),
                                      _t(ms[k, b], torch.bool), CFG.scan)
-            odo_state, odo = odometry_step(
+            _, odo = odometry_step(
                 _lane(before[k].odometry, b), feats, CFG.odometry,
                 CFG.scan.scan_period, read_live_count=False)
-            map_state, mout = mapping_step(
+            # the mapping step from the batched run's own odometry of the
+            # lane, so that both sides map the same inputs
+            odo_state = _lane(after[k].odometry, b)
+            _, mout = mapping_step(
                 _lane(before[k].mapping, b), odo_state.corner_last,
-                odo_state.surf_last, odo.q_w, odo.t_w, CFG.mapping)
+                odo_state.surf_last, torch.as_tensor(rows[k][0][b]),
+                torch.as_tensor(rows[k][1][b]), CFG.mapping)
             for got, want in zip(rows[k], _outputs(odo, mout)):
                 np.testing.assert_allclose(got[b], want, rtol=0, atol=1e-5)
     assert state.mapping.frame.tolist() == [N_FRAMES] * B

@@ -5,9 +5,12 @@ Each rank is its own ``python`` process running
 tests/torch_multihost_worker.py with the variables ``torchrun`` sets, so
 ``init_from_env`` is what joins them (gloo, on the CPU).  The result is
 held to tests/multihost_worker.py's JAX run on one process with as many
-virtual devices as ranks (the same mesh size), with the sharded twin's
-tolerances (tests/test_torch_sharded.py: t_w within 2e-2 m, where the
-jitted JAX step's float32 gates flip against the port's, measured 6.89 mm
+virtual devices as ranks (the same mesh size), its planes fit by
+tests/oracle.py's float64 least squares (run through
+tests/oracle_planes.py: the package's own float32 adjugate kept 563 surf
+factors where the port keeps 719), with the sharded twin's tolerances
+(tests/test_torch_sharded.py: t_w within 2e-2 m, where the jitted JAX
+step's float32 gates flip against the port's, measured 6.89 mm
 at 4 ranks; surf factors within max(5, 3 %), map surf points within
 max(10, 2 %)), and to the JAX
 test's sanity bounds: the solve engaged (surf factors > 100) and pulled the
@@ -27,6 +30,7 @@ from test_multihost import WORKER, _free_port
 
 TORCH_WORKER = os.path.join(os.path.dirname(__file__),
                             "torch_multihost_worker.py")
+ORACLE_PLANES = os.path.join(os.path.dirname(__file__), "oracle_planes.py")
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 
@@ -38,13 +42,14 @@ def _result(out: str) -> dict:
 
 def _run_jax_worker(local_devs: int, timeout: float = 420.0) -> dict:
     """tests/multihost_worker.py as one process with ``local_devs`` virtual
-    devices (the package found from the repository's root)."""
+    devices (the package found from the repository's root), inside
+    tests/oracle_planes.py."""
     env = {k: v for k, v in os.environ.items() if k != "XLA_FLAGS"}
     env["JAX_PLATFORMS"] = "cpu"
     env["PYTHONPATH"] = os.pathsep.join(
         p for p in (REPO, env.get("PYTHONPATH")) if p)
     proc = subprocess.run(
-        [sys.executable, WORKER, "0", "1", str(_free_port()),
+        [sys.executable, ORACLE_PLANES, WORKER, "0", "1", str(_free_port()),
          str(local_devs)], capture_output=True, text=True, env=env,
         timeout=timeout)
     assert proc.returncode == 0, proc.stderr[-3000:]

@@ -80,6 +80,7 @@ class FakeGraph:
 def fake_marks():
     marks = GraphMarks.__new__(GraphMarks)
     marks.first, marks.last, marks._sample = FakeEvent(), FakeEvent(), None
+    marks.phases = {}
     return marks
 
 
@@ -278,3 +279,175 @@ def test_gap_across_a_profilers_start_or_stop_is_not_timed(fake_events):
     assert report["features.gap"].count == 1
     assert "odometry.gap" not in report
     assert "profiler's start or stop, not timed: 2" in timers.report()
+
+
+MAP_PHASES = ("mapping.search", "mapping.solve", "mapping.merge")
+
+
+def _mapping_inputs(seed=0):
+    """A mapping step's inputs at HDL64_SMALL's capacities: the empty map
+    and two random clouds round the sensor."""
+    from light_loam_tpu_torch.core import quaternion as quat
+    from light_loam_tpu_torch.core.frame import PointCloud
+    from light_loam_tpu_torch.models.mapping import MappingState
+
+    gen = torch.Generator().manual_seed(seed)
+
+    def cloud(n):
+        xyz = (torch.rand((n, 3), generator=gen) - 0.5) * 40.0
+        return PointCloud(xyz=xyz, rel=torch.zeros(n),
+                          mask=torch.rand(n, generator=gen) < 0.5)
+    return (MappingState.init(CFG.mapping), cloud(CFG.scan.max_less_sharp),
+            cloud(CFG.scan.max_less_flat), quat.quat_identity(),
+            torch.zeros(3))
+
+
+@pytest.mark.parametrize("device", [False, True])
+def test_eager_mapping_step_records_its_phases(fake_events, device):
+    """Op by op, under open timers: each phase is one sample a stage (the
+    search and the solve open once per outer iteration), and the phases
+    lie within the stage's own span, on the host clock and (stand-in
+    events) on the card's."""
+    from light_loam_tpu_torch.models.mapping import mapping_step
+
+    state, corner, surf, q, t = _mapping_inputs()
+    timers = StageTimers(device=device)
+    for _ in range(2):
+        with timers.stage("mapping"):
+            state, _ = mapping_step(state, corner, surf, q, t, CFG.mapping)
+    assert all(timers.stages[p].count == 2 for p in MAP_PHASES)
+    host = sum(timers.stages[p].total_ms for p in MAP_PHASES)
+    assert host <= timers.stages["mapping"].total_ms
+    report = timers.device_report()
+    if not device:
+        assert report == {}
+        return
+    assert all(report[p].count == 2 for p in MAP_PHASES)
+    # stand-in events tick 1 ms each: every phase's part is 1 ms
+    outer = CFG.mapping.outer_iterations
+    assert report["mapping.search"].mean_ms == outer + 1
+    assert report["mapping.solve"].mean_ms == outer
+    assert report["mapping.merge"].mean_ms == 1
+    inner = sum(report[p].total_ms for p in MAP_PHASES)
+    assert inner <= report["mapping"].total_ms
+    assert not timers._phases and not timers._pending
+
+
+class FakePhasedGraph(FakeGraph):
+    """A captured graph with phases: a replay records the first mark, the
+    phases' events in the order of their capture, then the last mark."""
+
+    def __init__(self, marks, order):
+        super().__init__(marks)
+        self.order = order
+
+    def replay(self):
+        self.replays += 1
+        self.marks.first.record()
+        for ev in self.order:
+            ev.record()
+        self.marks.last.record()
+
+
+def test_phases_captured_into_a_graph_fold_with_its_replay(fake_events,
+                                                          monkeypatch):
+    """Phases opened while a graph is captured record their events into
+    the graph, not into the open timers; each replay then gives each
+    phase's device ms, its parts added up, beside the graph's own."""
+    monkeypatch.setattr(GraphMarks, "_event", staticmethod(FakeEvent))
+    marks = GraphMarks()
+    capturing = StageTimers(device=True)
+    order = []
+    with capturing.stage("mapping"), marks.capturing():
+        assert timing._CAPTURING.get() is marks
+        for name in ("a", "b", "a", "c"):
+            with timing.phase(name):
+                pass
+            order += marks.phases[name][-1]
+    assert timing._CAPTURING.get() is None
+    assert not any(n in capturing.stages for n in "abc")
+    assert {n: len(v) for n, v in marks.phases.items()} == {
+        "a": 2, "b": 1, "c": 1}
+
+    graph = FakePhasedGraph(marks, order)
+    timers = StageTimers(device=True)
+    for _ in range(3):
+        with timers.stage("mapping"):
+            marks.replay(graph, "mapping")
+    report = timers.device_report()
+    assert timers.missed == 0
+    assert report["a"].count == report["b"].count == 3
+    assert report["a"].mean_ms == 2.0 and report["c"].mean_ms == 1.0
+    # first, 8 phase events, last: the graph 9 ms, the phases 4 of it
+    assert report["mapping.graph"].mean_ms == 9.0
+    assert not timers._pending
+
+
+def test_capture_records_nothing_into_the_open_timers(fake_events):
+    """A graph's warm-up and capture passes run with no timers open."""
+    timers = StageTimers(device=True)
+    with timers.stage("mapping"):
+        with timing.untimed():
+            assert timing._OPEN.get() is None
+            with timing.phase("mapping.search"):
+                pass
+            with span("mapping.copy_in"):
+                pass
+        assert timing._OPEN.get() is timers
+    assert set(timers.stages) == {"mapping"}
+
+
+def test_counters_sum_where_they_live_and_report(fake_events, monkeypatch):
+    monkeypatch.setattr(timing, "_COUNT_FOLD", 2)
+    timers = StageTimers(device=True)
+    for n in (1500, 1700, 1600):
+        timers.count("mapping.planes", torch.tensor(n, dtype=torch.int32))
+    timers.count("mapping.lines", torch.tensor(40, dtype=torch.int32))
+    # the first two were summed at the fold, the third is kept as it is
+    total, kept, calls = timers.counters["mapping.planes"]
+    assert int(total) == 3200 and len(kept) == 1 and calls == 3
+    assert timers.counter_report() == {"mapping.planes": (4800, 3),
+                                       "mapping.lines": (40, 1)}
+    assert "mapping.planes: 1600.0 a call (4800 in 3)" in timers.report()
+    timers.reset()
+    assert timers.counter_report() == {}
+
+
+@pytest.mark.cuda
+def test_mapping_graph_phases_on_the_card():
+    """Flagship sweeps through the staged Pipeline on a card: the mapping
+    graph holds the phases' events (the features and odometry graphs none),
+    each replay gives every phase once, and the three add up to the
+    mapping graph's own span within 5 %; the factor counters are summed."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the graphs are captured on one")
+    from light_loam_tpu_torch.models import fused
+    from light_loam_tpu_torch.models import pipeline as tpl
+
+    cfg = tpl.PROFILES["hdl64"]
+    pipe = tpl.Pipeline(cfg, device="cuda")
+    try:
+        for k, (_, xyz, mask) in enumerate(tpl.synthetic_frames(5, cfg)):
+            if k == 2:
+                pipe.timers.reset()
+            pipe.process_frame(xyz, mask)
+        report = pipe.timers.device_report()
+        graphs = {s: stages.stage_graph(s, cfg, "cuda") for s in stages.STAGES}
+        assert graphs["features"].marks.phases == {}
+        assert graphs["odometry"].marks.phases == {}
+        outer = cfg.mapping.outer_iterations
+        assert {p: len(v) for p, v in graphs["mapping"].marks.phases.items()
+                } == {"mapping.search": outer + 1, "mapping.solve": outer,
+                      "mapping.merge": 1}
+        counters = pipe.timers.counter_report()
+    finally:
+        stages.clear_graphs()
+        fused.clear_graphs()
+    assert pipe.timers.missed == 0
+    assert all(report[p].count == 3 for p in MAP_PHASES)
+    assert report["mapping.graph"].count == 3
+    parts = sum(report[p].total_ms for p in MAP_PHASES)
+    assert parts == pytest.approx(report["mapping.graph"].total_ms,
+                                  rel=0.05), report
+    assert counters["mapping.planes"][1] == 3
+    assert counters["mapping.planes"][0] > 0
