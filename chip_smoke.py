@@ -8,7 +8,7 @@ in order (each phase prints one line of numbers; any failure is an uncaught
 exception and a non-zero exit):
 
   1. device: nvidia-smi name and power limit, torch and CUDA versions;
-  2. build: nvcc the four kernels, all at once (seconds, ptxas resource
+  2. build: nvcc the five kernels, all at once (seconds, ptxas resource
      lines);
   3. knn5 vs its plain PyTorch version at the mapping stage's shapes; at
      the live counts the stage hands over, timed per call and per launch
@@ -26,6 +26,14 @@ exception and a non-zero exit):
      card (q within 1e-5, t within 1e-4 m), the vote gate closed and open;
      a repeat and 4 lanes under ``torch.vmap`` (one launch) bit for bit;
      device ms per call beside its bound and the plain loop's, captured;
+ 4c. the feature picks (csrc/features.cu, one launch a call; no Pallas
+     twin) on the range images of ring-road sweeps of the HDL-64E and the
+     VLP-16, with the occlusion filter, and of grids built for exact ties,
+     short rings, dense short sectors and an empty scan: labels and order
+     keys bit for bit the plain picks on the CPU; the whole feature stage
+     on 5 sweeps bit for bit the stage with the plain picks on the card;
+     4 lanes under ``torch.vmap`` (one launch) bit for bit; device ms per
+     call beside its bound and the plain picks', captured;
  3c. segment_sum (csrc/segsum.cu, the ordered voxel, store and refinement
      sums; no Pallas twin): phase 5's 12 frames staged op by op
      (``stages.eager()``, so every call is seen) and a refinement of
@@ -165,7 +173,8 @@ frame confirms them kernel by kernel.  A run under ``stages.eager()``
 checks the wrappers' counts against the config's alone.  The LM kernel
 counts one launch per odometry outer iteration where the corner vote is
 off, and none for the mapping stage or the sharded step, which run the
-plain loop.
+plain loop.  The picks kernel counts one launch per frame's features, for
+all lanes of a batched frame alike.
 
 The last three lines are a JSON object with each kernel's numbers
 (``launches`` from the wrappers over the main-path phases, ``graph_launches``
@@ -197,7 +206,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from light_loam_tpu_torch.core.frame import PointCloud
+from light_loam_tpu_torch.core.frame import PointCloud, RangeImage
 from light_loam_tpu_torch.io.evaluation import ate_rmse
 from light_loam_tpu_torch.io.kitti import gt_to_lidar_frame, read_gt_poses
 from light_loam_tpu_torch.models import batch, fused, mapping, stages
@@ -227,9 +236,16 @@ from light_loam_tpu_torch.ops.cuda_segsum import (
     segment_sum,
     segment_sum_plain,
 )
+from light_loam_tpu_torch.ops.cuda_features import (
+    FEATURES,
+    compute_curvature,
+    pick_features,
+    select_features,
+)
+from light_loam_tpu_torch.ops import features as features_module
 from light_loam_tpu_torch.ops import graphvote, sorted_store
 from light_loam_tpu_torch.ops import voxel as voxel_module
-from light_loam_tpu_torch.ops.features import extract_features
+from light_loam_tpu_torch.ops.features import extract_features, occlusion_mask
 from light_loam_tpu_torch.ops.graphvote import full_graph_vote
 from light_loam_tpu_torch.ops.knn import (
     knn_tiled,
@@ -435,7 +451,7 @@ VOTE_MAX_DIFF, VOTE_MAX_FRAC = 1.0, 0.01
 H100_FP32_FLOPS, H100_BYTES_PER_S = 67e12, 3.35e12
 H100_MUFU_PER_S = H100_FP32_FLOPS / 16
 # the hand-written kernels, each with its launch count
-KERNELS = (KNN5, VOTE, SEGSUM, LM)
+KERNELS = (KNN5, VOTE, SEGSUM, LM, FEATURES)
 KNN_FLOP_PER_PAIR, VOTE_FLOP_PER_PAIR, VOTE_SQRT_PER_PAIR = 8, 19, 2
 
 
@@ -1005,6 +1021,257 @@ def phase_lm(dev) -> dict:
     return out
 
 
+# Phase 4c: the feature picks (csrc/features.cu, one launch a call; no
+# Pallas twin) against the plain picks: on the range images of ring-road
+# sweeps and of grids built for the walk's edge cases, and as the feature
+# stage's whole output
+FEATURE_LANE_CASES = ("hdl64_sweep", "ties", "dense", "empty")
+# the curvature: per axis 1 product and 10 sums, then 3 products and 2
+# sums; the step: 3 differences, 3 products, 2 sums.  The picks' scans and
+# compares are not counted, so the bound stays a least time.
+FEATURE_FLOP_PER_COLUMN = 3 * 11 + 5 + 8
+
+
+def _grid(xyz: np.ndarray, counts: np.ndarray) -> RangeImage:
+    """A range image whose ring r holds xyz[r, :counts[r]], zeros after."""
+    R, H = xyz.shape[:2]
+    mask = np.arange(H)[None, :] < counts[:, None]
+    xyz = np.where(mask[..., None], xyz, 0).astype(np.float32)
+    return RangeImage(xyz=torch.as_tensor(xyz), rel=torch.zeros((R, H)),
+                      mask=torch.as_tensor(mask),
+                      counts=torch.as_tensor(counts.astype(np.int32)))
+
+
+def sweep_grid(cfg, seed: int = 0) -> RangeImage:
+    """The range image of the first ring-road sweep under ``cfg``, made on
+    the CPU."""
+    ((xyz, mask),) = ring_frames(1, cfg, seed=seed)
+    return extract_features(torch.as_tensor(xyz), torch.as_tensor(mask),
+                            cfg.scan).full
+
+
+def tie_grid(R: int = 16, H: int = 2304) -> RangeImage:
+    """Rings of periodic bumps on straight lines, every coordinate a
+    multiple of 1/8: the arithmetic is exact, so columns with the same
+    neighbourhood have bit-equal curvatures (corners and flats tie in
+    runs), and the steps of 1/8 m (d2 1/64 <= 0.05) let suppression run
+    while the bumps' steps stop it."""
+    c = np.arange(H)
+    xyz = np.zeros((R, H, 3), np.float32)
+    for r in range(R):
+        period, bump = 3 + r % 5, 0.125 * (1 + r % 3) * (1 + 4 * (r % 2))
+        xyz[r, :, 0] = 10.0 + bump * (c % period == 0)
+        xyz[r, :, 1] = 0.125 * c
+        xyz[r, :, 2] = 0.125 * (r % 4)
+    return _grid(xyz, np.array([H, 1800, 17, 2000] * (R // 4)))
+
+
+def short_ring_grid(H: int = 2304, seed: int = 3) -> RangeImage:
+    """Noisy circles of 10 m with rings of 0, 5, 11, 16 (too short: fewer
+    than n_sectors columns past the 11 of the stencil), 17 (the shortest
+    that picks), 18, 40, 700 and H points, and one whose count passes H
+    (never from a range image: its last sector ends at the ring's end)."""
+    rng = np.random.default_rng(seed)
+    counts = np.array([0, 5, 11, 16, 17, 18, 40, 700, H, H, H + 500])
+    th = np.linspace(0, 2 * np.pi, H, endpoint=False)
+    circle = np.stack([10 * np.cos(th), 10 * np.sin(th), np.zeros(H)], -1)
+    return _grid(circle[None] + rng.normal(scale=0.05,
+                                           size=(len(counts), H, 3)), counts)
+
+
+def dense_grid(R: int = 64, H: int = 2304, seed: int = 5) -> RangeImage:
+    """Straight rings of 150-199 points 5 cm apart with 3 mm of noise and a
+    spike in 3 % of columns: sectors of 23-31 columns full of flats and
+    some corners, every step within the gap (d2 ~ 0.0025), so every
+    suppression window is whole and the last flat pick of a sector often
+    lies within reach of the next sector, where its break matters."""
+    rng = np.random.default_rng(seed)
+    y = rng.normal(scale=0.003, size=(R, H)) + 0.3 * (rng.random((R, H))
+                                                      < 0.03)
+    x = np.broadcast_to(0.05 * np.arange(H), (R, H))
+    return _grid(np.stack([x, y, np.zeros((R, H))], -1),
+                 rng.integers(150, 200, R))
+
+
+def empty_grid(R: int = 64, H: int = 2304) -> RangeImage:
+    return _grid(np.zeros((R, H, 3), np.float32), np.zeros(R, np.int64))
+
+
+def pad_rings(grid: RangeImage, R: int) -> RangeImage:
+    """``grid`` with empty rings after its own, R in all."""
+    n = R - grid.mask.shape[0]
+    return RangeImage(*(torch.cat([x, x.new_zeros((n,) + x.shape[1:])])
+                        for x in grid))
+
+
+OCCLUSION_SCAN = dataclasses.replace(PROFILES["hdl64"].scan,
+                                     occlusion_filter=True)
+
+
+def feature_grids() -> dict:
+    """name -> (range image on the CPU, ScanConfig, pre-suppressed mask or
+    None) of the picks' cases: the first ring-road sweep of the HDL-64E
+    and of the VLP-16, the HDL-64E's with the occlusion filter, exact
+    ties, rings too short, of 17 points and full, dense short sectors and
+    an empty scan."""
+    hdl64, vlp16 = PROFILES["hdl64"], PROFILES["vlp16"]
+    sweep = sweep_grid(hdl64)
+    return {
+        "hdl64_sweep": (sweep, hdl64.scan, None),
+        "vlp16_sweep": (sweep_grid(vlp16), vlp16.scan, None),
+        "ties": (tie_grid(), hdl64.scan, None),
+        "occluded": (sweep, OCCLUSION_SCAN,
+                     occlusion_mask(sweep, OCCLUSION_SCAN)),
+        "short_rings": (short_ring_grid(), hdl64.scan, None),
+        "dense": (dense_grid(), hdl64.scan, None),
+        "empty": (empty_grid(), hdl64.scan, None),
+    }
+
+
+def plain_picks(grid: RangeImage, scan, pre=None):
+    """The plain picks on ``grid``'s device: (label, order key)."""
+    return select_features(grid, compute_curvature(grid.xyz), scan,
+                           pre_suppressed=pre)
+
+
+@contextlib.contextmanager
+def plain_feature_stage():
+    """``extract_features`` with the plain picks in place of the operator
+    inside the block, on whatever device its inputs are."""
+    real = features_module.pick_features
+    features_module.pick_features = (
+        lambda grid, cfg, pre_suppressed=None: plain_picks(grid, cfg,
+                                                           pre_suppressed))
+    try:
+        yield
+    finally:
+        features_module.pick_features = real
+
+
+def stage_frames() -> list:
+    """(scan, xyz, mask) host arrays the whole feature stage is checked on:
+    two ring-road sweeps of the HDL-64E, one with the occlusion filter,
+    and two of the VLP-16."""
+    hdl64, vlp16 = PROFILES["hdl64"], PROFILES["vlp16"]
+    return ([(hdl64.scan, *f) for f in ring_frames(2, hdl64)]
+            + [(OCCLUSION_SCAN, *ring_frames(1, hdl64, seed=1)[0])]
+            + [(vlp16.scan, *f) for f in ring_frames(2, vlp16)])
+
+
+def feature_bound(R: int, H: int, lanes: int = 1) -> tuple:
+    """feature_picks reads xyz (12 B) and the mask (1 B) of every column
+    and the counts, and writes the label (1 B) and the key (4 B)."""
+    return _bound(lanes * R * H * FEATURE_FLOP_PER_COLUMN,
+                  lanes * (R * H * 18 + 4 * R))
+
+
+def phase_features(dev) -> dict:
+    """Phase 4c: the picks of every ``feature_grids`` case through the
+    kernel (one launch a call) bit for bit the plain picks on the CPU; the
+    whole feature stage on ``stage_frames`` with the kernel bit for bit the
+    stage with the plain picks on the same card; the cases of
+    FEATURE_LANE_CASES (padded to 64 rings) as lanes of one launch under
+    vmap, each bit for bit its single launch; device ms of the kernel
+    (single and lanes) and of the plain picks captured as a graph, at the
+    HDL-64E sweep, and the bound."""
+    grids = feature_grids()
+    frames = stage_frames()
+    # name -> (columns whose label or order key differ, largest |difference|)
+    differ = {}
+    for name, (grid, scan, pre) in grids.items():
+        before = FEATURES.launches
+        label, okey = pick_features(_on(grid, dev), scan,
+                                    None if pre is None else pre.to(dev))
+        if FEATURES.launches != before + 1:
+            raise AssertionError(f"feature picks, {name}: not one launch")
+        differ[name] = _picks_differ((label, okey), plain_picks(grid, scan,
+                                                                pre))
+    for k, (scan, xyz, mask) in enumerate(frames):
+        xyz, mask = torch.as_tensor(xyz).to(dev), torch.as_tensor(mask).to(dev)
+        before = FEATURES.launches
+        got = extract_features(xyz, mask, scan)
+        if FEATURES.launches != before + 1:
+            raise AssertionError("extract_features: not one picks launch")
+        with plain_feature_stage():
+            want = extract_features(xyz, mask, scan)
+        differ[f"stage {k}"] = _picks_differ(stages._leaves(got),
+                                             stages._leaves(want))
+
+    scan = grids["hdl64_sweep"][1]
+    lane_grids = [_on(pad_rings(grids[c][0], 64), dev)
+                  for c in FEATURE_LANE_CASES]
+    stacked = [torch.stack(x) for x in zip(*((g.xyz, g.mask, g.counts)
+                                             for g in lane_grids))]
+
+    def lanes():
+        return torch.vmap(lambda x, m, c: pick_features(
+            RangeImage(x, None, m, c), scan))(*stacked)
+
+    before = FEATURES.launches
+    label, okey = lanes()
+    if FEATURES.launches != before + 1:
+        raise AssertionError("feature picks: the lanes were not one launch")
+    for b, g in enumerate(lane_grids):
+        differ[f"lane {b}"] = _picks_differ((label[b], okey[b]),
+                                            pick_features(g, scan))
+    bad = {k: v for k, v in differ.items() if v[0]}
+    if bad:
+        raise AssertionError("feature picks: (differing columns, largest "
+                             f"|difference|) against the plain picks: {bad}")
+
+    grid = lane_grids[0]
+    R, H = grid.mask.shape
+    kernel = functools.partial(pick_features, grid, scan)
+    out = dict(
+        R=R, H=H, cases=sorted(grids), stage_frames=len(frames),
+        differing=max(v[0] for v in differ.values()),
+        max_abs_err=max(v[1] for v in differ.values()),
+        ms=_median_ms(kernel, 50), device_ms=_device_ms(kernel, 50),
+        plain_graph_ms=_graph_ms(functools.partial(plain_picks, grid, scan),
+                                 5),
+        lanes_device_ms=_device_ms(lanes, 20),
+    )
+    out["bound_ms"], out["bound_by"] = feature_bound(R, H)
+    out["lanes_bound_ms"], _ = feature_bound(R, H, len(lane_grids))
+    print(f"[4c features] {len(grids)} cases ({', '.join(sorted(grids))}) "
+          "bit for bit the plain picks, one launch each; the whole feature "
+          f"stage on {out['stage_frames']} sweeps bit for bit the stage with "
+          f"the plain picks | {R} x {H}: kernel {out['ms']:.4f} ms per call, "
+          f"{out['device_ms']:.4f} ms per launch on the device, bound "
+          f"{out['bound_ms']:.5f} ms ({out['bound_by']}), "
+          f"{out['bound_ms'] / out['device_ms']:.2%} of the bound | plain "
+          f"picks {out['plain_graph_ms']:.4f} ms per call as a captured "
+          f"graph | {len(lane_grids)} lanes in one launch "
+          f"{out['lanes_device_ms']:.4f} ms (bound "
+          f"{out['lanes_bound_ms']:.5f} ms), each bit for bit its single "
+          f"launch | largest count of differing columns {out['differing']}, "
+          f"largest |difference| {out['max_abs_err']:.3g}")
+    return out
+
+
+def _on(grid: RangeImage, dev) -> RangeImage:
+    return RangeImage(*(x.to(dev) for x in grid))
+
+
+def _picks_differ(got, want) -> tuple:
+    """Over tensors paired from ``got`` and ``want`` (the picks' label and
+    order key, or the leaves of two ScanFeatures): the largest count of
+    elements that differ in one pair, and the largest |difference|."""
+    count, err = 0, 0.0
+    for a, b in zip(got, want):
+        a, b = a.cpu(), b.cpu()
+        if a.shape != b.shape or a.dtype != b.dtype:
+            raise AssertionError(f"feature picks: {tuple(a.shape)} {a.dtype}"
+                                 f" against {tuple(b.shape)} {b.dtype}")
+        ne = a != b
+        count = max(count, int(ne.sum()))
+        if ne.any():
+            wide = torch.float64 if a.is_floating_point() else torch.int64
+            err = max(err, float((a[ne].to(wide) - b[ne].to(wide)).abs()
+                                 .nan_to_num(float("inf")).max()))
+    return count, err
+
+
 # Phase 3c: segment_sum at the main path's shapes, B lanes in one launch
 SEGSUM_LANES = 4
 # the modules that call segment_sum, by the name they import it under
@@ -1243,7 +1510,8 @@ def expected_launches(cfg, n_frames: int, n_mapped: int,
     per mapped frame the two stack downsamples and, for each store, the
     full re-sort and (but in "resort" mode) the sorted merge's reduce; and
     the keyframe stack the host loop downsamples after each mapped frame
-    (``keyframes``, n_mapped unless given: a graph replay holds none)."""
+    (``keyframes``, n_mapped unless given: a graph replay holds none).
+    feature_picks: one per frame, whatever the lanes."""
     o, m = cfg.odometry, cfg.mapping
     simple = (o.plane_vote_mode == "simple") + (o.corner_vote_mode == "simple")
     # the LM kernel: every odometry outer iteration whose factors are the
@@ -1257,7 +1525,7 @@ def expected_launches(cfg, n_frames: int, n_mapped: int,
             + (2 + 2 * per_store) * n_mapped
             + (n_mapped if keyframes is None else keyframes))
     return {"knn.cu": 2 * m.outer_iterations * n_mapped, "vote.cu": votes,
-            "segsum.cu": sums, "lm.cu": lm}
+            "segsum.cu": sums, "lm.cu": lm, "features.cu": n_frames}
 
 
 def replay_launches(cfg) -> dict:
@@ -1269,7 +1537,8 @@ def replay_launches(cfg) -> dict:
 def keyframe_launches(n: int) -> dict:
     """Launches the host loop makes around ``n`` fused frames: each frame's
     keyframe stack, one voxel downsample, outside the graph."""
-    return {"knn.cu": 0, "vote.cu": 0, "segsum.cu": n, "lm.cu": 0}
+    return {"knn.cu": 0, "vote.cu": 0, "segsum.cu": n, "lm.cu": 0,
+            "features.cu": 0}
 
 
 # the device functions of the csrc/ kernels that one launch by the wrapper
@@ -1277,7 +1546,8 @@ def keyframe_launches(n: int) -> dict:
 KERNEL_FUNCTIONS = {"knn.cu": "knn5_segment_kernel",
                     "vote.cu": "compat_votes_kernel",
                     "segsum.cu": "segment_sum_kernel",
-                    "lm.cu": "lm_solve_kernel"}
+                    "lm.cu": "lm_solve_kernel",
+                    "features.cu": "feature_picks_kernel"}
 
 
 def replay_kernel_counts(graph) -> tuple:
@@ -3236,7 +3506,8 @@ def phase_vlp16(kernels) -> tuple:
 
 # the kernels' names in the JSON line, by source
 KERNEL_NAMES = (("knn5", "knn.cu"), ("compat_votes", "vote.cu"),
-                ("segment_sum", "segsum.cu"), ("lm_solve_edge_plane", "lm.cu"))
+                ("segment_sum", "segsum.cu"), ("lm_solve_edge_plane", "lm.cu"),
+                ("feature_picks", "features.cu"))
 
 
 def segsum_json(sums, launches, graph_launches, lane_launches, p15) -> dict:
@@ -3306,6 +3577,7 @@ def main(argv=None) -> int:
     vote = phase_vote(dev)
     vote_lanes = phase_vote_lanes(dev)
     lm = phase_lm(dev)
+    picks = phase_features(dev)
     sums = phase_segsum(dev)
     p5 = phase_pipeline("5 pipeline", PROFILES["hdl64"], N_FRAMES,
                         JAX_MAPPED_POSITIONS, kernels)
@@ -3411,6 +3683,18 @@ def main(argv=None) -> int:
                                "device_ms", "plain_graph_ms",
                                "lanes_device_ms", "bound_ms", "bound_by",
                                "lanes_bound_ms")},
+         "library_ms": None},
+        {"name": "feature_picks", "route": "cuda",
+         "source": "light_loam_tpu_torch/csrc/features.cu", "replaces": None,
+         "launches": launches["features.cu"],
+         "graph_launches": graph_launches["features.cu"],
+         "lane_launches": lane_launches["features.cu"],
+         "sharded_lane_launches": p15["lane_launches"]["features.cu"],
+         **{k: picks[k] for k in ("max_abs_err", "differing", "R", "H",
+                                  "cases", "stage_frames", "ms",
+                                  "device_ms", "plain_graph_ms",
+                                  "lanes_device_ms", "bound_ms", "bound_by",
+                                  "lanes_bound_ms")},
          "library_ms": None},
     ]}))
     print(smi)

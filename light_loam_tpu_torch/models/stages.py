@@ -51,6 +51,7 @@ from light_loam_tpu_torch.core import quaternion as quat
 from light_loam_tpu_torch.core.frame import PointCloud, RangeImage, ScanFeatures
 from light_loam_tpu_torch.models.mapping import MappingState, mapping_step
 from light_loam_tpu_torch.models.odometry import OdometryState, odometry_step
+from light_loam_tpu_torch.ops.cuda_features import FEATURES
 from light_loam_tpu_torch.ops.cuda_knn import KNN5
 from light_loam_tpu_torch.ops.cuda_segsum import SEGSUM
 from light_loam_tpu_torch.ops.cuda_vote import VOTE
@@ -121,7 +122,7 @@ class CapturedStep:
     ``marks.replay(self.graph, name)``.  The warm-up and the capture record
     nothing into the timers of the stage that captures the step."""
 
-    kernels = (KNN5, VOTE, SEGSUM, LM)
+    kernels = (KNN5, VOTE, SEGSUM, LM, FEATURES)
 
     def _step(self):
         raise NotImplementedError

@@ -26,7 +26,10 @@ with the vote path off and with the latent vote path on.
 
 The segment sum (csrc/segsum.cu) adds each slot's rows in row order, the
 order of ``index_add`` on the CPU, so it is held to its plain version on
-CPU copies of its inputs bit for bit.  The fused frame (models/fused.py)
+CPU copies of its inputs bit for bit.  So are the feature picks (csrc/features.cu:
+every product and sum of the curvature rounded on its own, the picks
+integer logic over it), and the feature stage with them is held to the
+stage with the plain picks on the same card.  The fused frame (models/fused.py)
 replays a CUDA graph of the very ops the eager body enqueues, and the
 staged path runs the same stage functions; with the voxel, store and
 refinement sums ordered, graph, eager body and staged run are the same
@@ -62,24 +65,32 @@ import pytest
 import torch
 
 from chip_smoke import (
+    FEATURE_LANE_CASES,
     LM_FRAMES,
     LM_Q_TOL,
     LM_T_TOL_M,
+    dense_grid,
     expected_launches,
+    feature_grids,
     graph_launches_since,
     keyframe_launches,
     latent_vote_config,
+    pad_rings,
+    plain_feature_stage,
+    plain_picks,
     record_lm_calls,
     replay_kernel_counts,
     replay_launches,
     ring_frames,
+    stage_frames,
 )
-from light_loam_tpu_torch.core.frame import PointCloud
+from light_loam_tpu_torch.core.frame import PointCloud, RangeImage
 from light_loam_tpu_torch.models import batch, fused, stages
 from light_loam_tpu_torch.models import pipeline as tpl
 from light_loam_tpu_torch.models.mapping import MappingState, mapping_step
 from light_loam_tpu_torch.models.odometry import OdometryState
 from light_loam_tpu_torch.ops import cuda_build
+from light_loam_tpu_torch.ops.cuda_features import FEATURES, pick_features
 from light_loam_tpu_torch.ops.cuda_segsum import (
     SEGSUM,
     segment_sum,
@@ -97,6 +108,7 @@ from light_loam_tpu_torch.ops.cuda_vote import (
     compat_votes,
     compat_votes_plain,
 )
+from light_loam_tpu_torch.ops.features import extract_features
 from light_loam_tpu_torch.ops.graphvote import full_graph_vote, simple_vote
 from light_loam_tpu_torch.ops.knn import (
     surf_correspondences,
@@ -119,7 +131,7 @@ torch.set_num_threads(2)
 
 EPS32 = float(np.finfo(np.float32).eps)
 # the hand-written kernels, each with its launch count
-KERNELS = (KNN5, VOTE, SEGSUM, LM)
+KERNELS = (KNN5, VOTE, SEGSUM, LM, FEATURES)
 
 
 @pytest.fixture
@@ -1695,6 +1707,159 @@ def test_odometry_stage_graph_launches_the_lm_kernel(cuda):
     assert graphs["features"].kernel_launches["lm.cu"] == 0
 
 
+# the feature picks (csrc/features.cu) against the plain picks, on every
+# case of chip_smoke.feature_grids; chip_smoke.py phase 4c makes the same run
+@pytest.fixture(scope="module")
+def feature_cases():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device (and nvcc) to build and launch the "
+                    "kernels")
+    return feature_grids()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", ["hdl64_sweep", "vlp16_sweep", "ties",
+                                  "occluded", "short_rings", "dense",
+                                  "empty"])
+def test_feature_picks_kernel_equals_plain(feature_cases, case):
+    """One launch gives the labels and order keys of the plain picks on
+    the CPU bit for bit: ring-road sweeps of the HDL-64E and the VLP-16,
+    the HDL-64E's with the occlusion filter, exact curvature ties, rings
+    of fewer than 17, 17 and h_max points, dense short sectors, an empty
+    scan."""
+    grid, scan, pre = feature_cases[case]
+    dev = torch.device("cuda", 0)
+    before = FEATURES.launches
+    label, okey = pick_features(_to(grid, dev), scan,
+                                None if pre is None else pre.to(dev))
+    assert FEATURES.launches == before + 1
+    want_label, want_okey = plain_picks(grid, scan, pre)
+    assert torch.equal(label.cpu(), want_label)
+    assert torch.equal(okey.cpu(), want_okey)
+
+
+@pytest.mark.cuda
+def test_feature_stage_with_the_kernel_equals_the_plain_stage(cuda):
+    """``extract_features`` on the card, with the kernel (one launch a
+    call) and with the plain picks in its place: every tensor of the
+    ScanFeatures bit for bit, on HDL-64E sweeps (one with the occlusion
+    filter) and VLP-16 sweeps."""
+    for scan, xyz, mask in stage_frames():
+        xyz, mask = torch.as_tensor(xyz).to(cuda), torch.as_tensor(mask).to(
+            cuda)
+        before = FEATURES.launches
+        got = extract_features(xyz, mask, scan)
+        assert FEATURES.launches == before + 1
+        with plain_feature_stage():
+            want = extract_features(xyz, mask, scan)
+        assert FEATURES.launches == before + 1
+        assert int(got.sharp.mask.sum()) > 0 and int(got.flat.mask.sum()) > 0
+        for a, b in zip(stages._leaves(got), stages._leaves(want)):
+            assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_feature_picks_lanes_equal_single_launches(feature_cases):
+    """Four range images of 64 rings as lanes under ``torch.vmap``: one
+    launch, each lane bit for bit its own single launch."""
+    dev = torch.device("cuda", 0)
+    scan = feature_cases["hdl64_sweep"][1]
+    grids = [_to(pad_rings(feature_cases[c][0], 64), dev)
+             for c in FEATURE_LANE_CASES]
+    stacked = [torch.stack(x) for x in zip(*((g.xyz, g.mask, g.counts)
+                                             for g in grids))]
+    before = FEATURES.launches
+    label, okey = torch.vmap(lambda x, m, c: pick_features(
+        RangeImage(x, None, m, c), scan))(*stacked)
+    assert FEATURES.launches == before + 1
+    for b, g in enumerate(grids):
+        single = pick_features(g, scan)
+        assert torch.equal(label[b], single[0])
+        assert torch.equal(okey[b], single[1])
+
+
+def _traced_grids(replay, tmp_path, kernel: str) -> list:
+    """The launch grids of ``kernel`` in a profiled ``replay()``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        replay()
+        torch.cuda.synchronize()
+    path = tmp_path / "trace.json"
+    prof.export_chrome_trace(str(path))
+    return [e["args"]["grid"] for e in json.loads(path.read_text())[
+        "traceEvents"] if e.get("cat") == "kernel" and kernel in e["name"]]
+
+
+@pytest.mark.cuda
+def test_feature_graphs_launch_the_picks_kernel(cuda, tmp_path):
+    """The flagship stages captured: the features graph launches the picks
+    kernel once a replay (``kernel_launches["features.cu"]``), with one
+    block a ring, the odometry and mapping graphs never; the batched frame
+    of B = 3 lanes once, with B R blocks."""
+    cfg = tpl.PROFILES["hdl64"]
+    R = cfg.scan.n_scans
+    graphs = dict(zip(stages.STAGES, stages.stage_graphs(cfg, cuda)))
+    assert [graphs[s].kernel_launches["features.cu"]
+            for s in stages.STAGES] == [1, 0, 0]
+    feats = graphs["features"]
+    assert _traced_grids(lambda: feats.marks.replay(feats.graph, "features"),
+                         tmp_path, "feature_picks_kernel") == [[R, 1, 1]]
+
+    small, B = tpl.PROFILES["hdl64-small"], 3
+    lanes = fused.frame_graph(small, cuda, lanes=B)
+    assert lanes.kernel_launches["features.cu"] == 1
+    lanes.index.zero_()
+    try:
+        grids = _traced_grids(
+            lambda: lanes.marks.replay(lanes.graph, lanes.name), tmp_path,
+            "feature_picks_kernel")
+    finally:
+        lanes.index.zero_()
+    assert grids == [[B * small.scan.n_scans, 1, 1]]
+
+
+@pytest.mark.cuda
+def test_feature_picks_refuses_bad_inputs(cuda):
+    """A wrong dtype, shape or device or a strided tensor raises before any
+    launch; a suppression radius over the kernel's 32, rings too wide for
+    a block's shared memory or no sector are refused by the launcher
+    (cudaErrorInvalidValue), which launches nothing."""
+    scan = tpl.PROFILES["hdl64"].scan
+    grid = _to(dense_grid(R=4, H=256), cuda)
+    bad = {
+        "xyz float64": grid._replace(xyz=grid.xyz.double()),
+        "mask shape": grid._replace(mask=grid.mask[:, :-1]),
+        "counts int64": grid._replace(counts=grid.counts.long()),
+        "counts on the CPU": grid._replace(counts=grid.counts.cpu()),
+        "strided xyz": grid._replace(
+            xyz=grid.xyz.transpose(0, 1).contiguous().transpose(0, 1)),
+    }
+    before = FEATURES.launches
+    for name, g in bad.items():
+        with pytest.raises(ValueError):
+            pick_features(g, scan)
+    with pytest.raises(ValueError):
+        pick_features(grid, scan, pre_suppressed=grid.mask.float())
+    refused = "CUDA error 1$"    # cudaErrorInvalidValue
+    with pytest.raises(RuntimeError, match=refused):
+        pick_features(grid, dataclasses.replace(scan, suppression_radius=33))
+    with pytest.raises(RuntimeError, match=refused):
+        pick_features(grid, dataclasses.replace(scan, n_sectors=0))
+    wide = 14000
+    with pytest.raises(RuntimeError, match=refused):
+        pick_features(RangeImage(torch.zeros((1, wide, 3), device=cuda),
+                                 None, torch.zeros((1, wide), dtype=torch.bool,
+                                                   device=cuda),
+                                 torch.zeros(1, dtype=torch.int32,
+                                             device=cuda)), scan)
+    assert FEATURES.launches == before
+    # the flagship ring (2304 columns) still fits and launches
+    pick_features(_to(dense_grid(R=4, H=2304), cuda), scan)
+    assert FEATURES.launches == before + 1
+
+
 @pytest.mark.cuda
 def test_failed_stage_capture_raises(cuda):
     """An odometry body that reads to the host passes its eager warm-up and
@@ -1725,11 +1890,13 @@ def hdl64_sweeps():
     return cfg, [(xyz, mask) for _, xyz, mask in tpl.synthetic_frames(3, cfg)]
 
 
-def _timed_sweeps(cfg, sweeps, device, timers, last=None):
+def _timed_sweeps(cfg, sweeps, device, timers, last=None, ahead=0):
     """The benchmark's odometry front end over ``sweeps``: each stage under
     ``timers``, the pose read back; ``timers`` reset before the last sweep
     (the first captures the graphs, the second replays them first), which
-    runs inside ``last`` when given."""
+    runs inside ``last`` when given.  With ``ahead`` the last sweep is
+    queued behind a spin of the card of that many cycles, so the card runs
+    behind the host through both stages."""
     odo = OdometryState.init(cfg.scan.max_less_sharp, cfg.scan.max_less_flat,
                              device)
     for k, (xyz, mask) in enumerate(sweeps):
@@ -1737,6 +1904,8 @@ def _timed_sweeps(cfg, sweeps, device, timers, last=None):
         if final:
             timers.reset()
         with last if final and last is not None else contextlib.nullcontext():
+            if final and ahead:
+                torch.cuda._sleep(ahead)
             with timers.stage("features"):
                 feats = stages.run_features(xyz, mask, cfg, device)
             with timers.stage("odometry"):
@@ -1746,14 +1915,14 @@ def _timed_sweeps(cfg, sweeps, device, timers, last=None):
     return timers.device_report()
 
 
-@pytest.mark.cuda
-def test_stage_spans_add_up_to_the_stage(cuda, hdl64_sweeps):
-    """One HDL-64 sweep: each stage's copy_in + launch + graph + clone_out
-    within 2 % of the stage's own events."""
-    cfg, sweeps = hdl64_sweeps
+# ~50 ms of the card's clock: longer than the host takes to enqueue a sweep
+AHEAD_CYCLES = 10**8
+
+
+def _spans_add_up(cfg, sweeps, device, ahead=0):
     timers = StageTimers(device=True)
     try:
-        report = _timed_sweeps(cfg, sweeps, cuda, timers)
+        report = _timed_sweeps(cfg, sweeps, device, timers, ahead=ahead)
     finally:
         fused.clear_graphs()
     assert timers.missed == 0
@@ -1767,17 +1936,28 @@ def test_stage_spans_add_up_to_the_stage(cuda, hdl64_sweeps):
 
 
 @pytest.mark.cuda
-def test_graph_span_matches_the_profilers_kernels(cuda, hdl64_sweeps):
-    """One profiled HDL-64 sweep: each stage's ``graph`` span within 5 % of
-    the first to the last device activity of its replay in the profiler's
-    timeline (those that share the cudaGraphLaunch call's correlation)."""
+def test_stage_spans_add_up_to_the_stage(cuda, hdl64_sweeps):
+    """One HDL-64 sweep: each stage's copy_in + launch + graph + clone_out
+    within 2 % of the stage's own events."""
+    _spans_add_up(*hdl64_sweeps, cuda)
+
+
+@pytest.mark.cuda
+def test_stage_spans_add_up_with_the_card_behind(cuda, hdl64_sweeps):
+    """As test_stage_spans_add_up_to_the_stage, with the sweep queued
+    behind a spin of the card (AHEAD_CYCLES): no host gap between the
+    spans falls inside a stage."""
+    _spans_add_up(*hdl64_sweeps, cuda, ahead=AHEAD_CYCLES)
+
+
+def _graph_span_matches_the_profiler(cfg, sweeps, device, ahead=0):
     from torch.profiler import ProfilerActivity, profile
 
-    cfg, sweeps = hdl64_sweeps
     timers = StageTimers(device=True)
     prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
     try:
-        report = _timed_sweeps(cfg, sweeps, cuda, timers, last=prof)
+        report = _timed_sweeps(cfg, sweeps, device, timers, last=prof,
+                               ahead=ahead)
     finally:
         fused.clear_graphs()
     events = prof.profiler.kineto_results.events()
@@ -1792,6 +1972,24 @@ def test_graph_span_matches_the_profilers_kernels(cuda, hdl64_sweeps):
         last = max(e.start_ns() + e.duration_ns() for e in acts)
         assert report[f"{stage}.graph"].mean_ms == pytest.approx(
             (last - first) / 1e6, rel=0.05), stage
+
+
+@pytest.mark.cuda
+def test_graph_span_matches_the_profilers_kernels(cuda, hdl64_sweeps):
+    """One profiled HDL-64 sweep: each stage's ``graph`` span within 5 % of
+    the first to the last device activity of its replay in the profiler's
+    timeline (those that share the cudaGraphLaunch call's correlation)."""
+    _graph_span_matches_the_profiler(*hdl64_sweeps, cuda)
+
+
+@pytest.mark.cuda
+def test_graph_span_matches_the_profiler_with_the_card_behind(
+        cuda, hdl64_sweeps):
+    """As test_graph_span_matches_the_profilers_kernels, with the sweep
+    queued behind a spin of the card (AHEAD_CYCLES): each graph is
+    launched before the card reaches it."""
+    _graph_span_matches_the_profiler(*hdl64_sweeps, cuda,
+                                     ahead=AHEAD_CYCLES)
 
 
 @pytest.mark.cuda

@@ -20,6 +20,7 @@ import torch
 
 from light_loam_tpu.ops import features as jf
 from light_loam_tpu_torch.config import HDL64_SMALL
+from light_loam_tpu_torch.ops import cuda_features as cf
 from light_loam_tpu_torch.ops import features as tf
 from light_loam_tpu_torch.utils.synthetic import World, pad_cloud, simulate_scan
 
@@ -62,9 +63,9 @@ def test_select_features_on_the_same_grid(scan):
     jcurv = jf.compute_curvature(grid.xyz)
     jlab, jkey = jf.select_features(grid, jcurv, CFG)
     tgrid = tf.RangeImage(*[torch.as_tensor(np.array(a)) for a in grid])
-    tcurv = tf.compute_curvature(tgrid.xyz)
+    tcurv = cf.compute_curvature(tgrid.xyz)
     np.testing.assert_array_equal(tcurv.numpy(), np.asarray(jcurv))
-    tlab, tkey = tf.select_features(tgrid, tcurv, CFG)
+    tlab, tkey = cf.select_features(tgrid, tcurv, CFG)
     jlab = np.asarray(jlab)
     assert (jlab == 2).sum() > 50 and (jlab == -1).sum() > 50
     np.testing.assert_array_equal(tlab.numpy(), jlab)
